@@ -1,0 +1,47 @@
+"""cilantro-tpu-torch: the PyTorch + CUDA port of ``cilantro_tpu``.
+
+The package mirrors the JAX package's layout (``core/``, ``registration/``,
+``slam/``) so that each module's counterpart is easy to find. It imports
+``torch`` and numpy only: never ``jax`` and nothing of ``cilantro_tpu``.
+The JAX package stays the reference; the tests hold every ported function
+against it on the CPU.
+
+Every TPU (Pallas) kernel on a ported path is a CUDA C++ kernel under
+``csrc/`` (built with ``nvcc`` for ``sm_90a`` at first CUDA use, see
+:mod:`.native`) with a plain PyTorch version beside it in the same module.
+The wrapper runs the plain version only for CPU tensors; for a CUDA tensor
+it launches the kernel or raises.
+
+Ported so far (splat fusion, the headline pipeline):
+
+core            ``Transform`` and its ops, ``CameraIntrinsics``, depth →
+                points (+normals)
+registration    ``estimate_rigid_point_to_point``
+slam            the splat kernels (``slam/splat.py``), splat fusion
+                (``slam/splat_fusion.py``), ``ate_rmse`` and
+                ``synthetic_sequence`` (``slam/driver.py``)
+interop         build port state from the JAX package's leaves (numpy)
+"""
+
+__version__ = "0.1.0"
+
+import torch
+
+# Geometry is conditioning-sensitive (normal equations, SO(3) projections):
+# keep TF32 out of every float32 product, as ``cilantro_tpu`` pins matmul
+# precision to "highest". A TF32 JᵀJ would move the poses.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``torch.device`` for ``device``; raises if CUDA is asked for and the
+    machine has none. Nothing in the port falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but CUDA is not available; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev

@@ -1,0 +1,109 @@
+"""Each CUDA splat kernel against its plain PyTorch version, on the card.
+
+The kernels are pure selects: outputs must agree bit for bit (floats
+compared as int32 views). The tests skip on a machine without a CUDA
+device. This file imports neither JAX nor the JAX package, so it also runs
+where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_splat_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cilantro_tpu_torch.slam import splat
+
+LAYERS, H, W = 2, 64, 80
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().contiguous().view(torch.int32).numpy()
+
+
+def _launched(name, fn):
+    """Run ``fn`` and check that it launched kernel ``name`` exactly once."""
+    before = splat.launch_counts[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert splat.launch_counts[name] == before + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", (2, 4))
+def test_cuda_argmin2_matches_plain(r, cuda):
+    rng = np.random.default_rng(r)
+    w2 = 2 * r + 1
+    key = rng.random((1, LAYERS, H + 2 * r, W + 2 * r)).astype(np.float32)
+    key[rng.random(key.shape) < 0.2] = 0.5  # ties: the tie order matters
+    off = rng.integers(-1, w2 * w2, size=key.shape).astype(np.int32)
+    key[off < 0] = np.inf
+    key_t, off_t = torch.from_numpy(key), torch.from_numpy(off)
+    plain = splat.splat_argmin2(key_t, off_t, radius=r)
+    dev = _launched(
+        "splat_argmin2",
+        lambda: splat.splat_argmin2(key_t.to(cuda), off_t.to(cuda), radius=r),
+    )
+    for p, d in zip(plain, dev):
+        np.testing.assert_array_equal(_bits(d), _bits(p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", (2, 4))
+def test_cuda_select_rows_matches_plain(r, cuda):
+    """Winner and runner-up codes in one launch over a broadcast map."""
+    rng = np.random.default_rng(r)
+    w2 = 2 * r + 1
+    rows = torch.from_numpy(
+        rng.standard_normal((1, LAYERS, 8, H + 2 * r, W + 2 * r)).astype(np.float32)
+    ).expand(2, -1, -1, -1, -1)
+    code = torch.from_numpy(
+        rng.integers(-1, LAYERS * w2 * w2, size=(2, H, W)).astype(np.int32)
+    )
+    plain = splat.flow_select_rows(rows, code, radius=r)
+    dev = _launched(
+        "flow_select_rows",
+        lambda: splat.flow_select_rows(
+            rows[:1].to(cuda).expand(2, -1, -1, -1, -1), code.to(cuda), radius=r
+        ),
+    )
+    np.testing.assert_array_equal(_bits(dev), _bits(plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", (2, 4))
+def test_cuda_window_read_matches_plain(r, cuda):
+    """One frame broadcast to both layers (batch stride 0)."""
+    rng = np.random.default_rng(r)
+    w2 = 2 * r + 1
+    img = torch.from_numpy(
+        rng.integers(-1000, 1000, size=(1, 7, H + 2 * r, W + 2 * r)).astype(np.int32)
+    )
+    off = torch.from_numpy(rng.integers(-1, w2 * w2, size=(LAYERS, H, W)).astype(np.int32))
+    plain = splat.window_read_codes(img.expand(LAYERS, -1, -1, -1), off, radius=r)
+    dev = _launched(
+        "window_read_codes",
+        lambda: splat.window_read_codes(
+            img.to(cuda).expand(LAYERS, -1, -1, -1), off.to(cuda), radius=r
+        ),
+    )
+    np.testing.assert_array_equal(dev.cpu().numpy(), plain.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    r = 2
+    off = torch.zeros((1, H, W), dtype=torch.int32, device=cuda)
+    img = torch.zeros((1, 2, H + 2 * r, W + 2 * r), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="several devices"):
+        splat.window_read_codes(img, off.cpu(), radius=r)
+    with pytest.raises(ValueError, match="contiguous"):
+        splat.window_read_codes(img.transpose(2, 3).contiguous().transpose(2, 3), off, radius=r)
