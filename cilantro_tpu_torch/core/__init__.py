@@ -1,1 +1,2 @@
-"""Transforms and RGBD conversions (port of ``cilantro_tpu.core``)."""
+"""Transforms, point clouds, voxel grids and RGBD conversions (port of
+``cilantro_tpu.core``)."""

@@ -28,6 +28,12 @@ class Transform:
     def dim(self) -> int:
         return self.linear.shape[-1]
 
+    def apply(self, points: torch.Tensor) -> torch.Tensor:
+        return transform_points(self, points)
+
+    def apply_normals(self, normals: torch.Tensor, rigid: bool = True) -> torch.Tensor:
+        return transform_normals(self, normals, rigid=rigid)
+
     def matrix(self) -> torch.Tensor:
         """Homogeneous ``(..., D+1, D+1)`` matrix."""
         d = self.dim

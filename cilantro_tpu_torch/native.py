@@ -20,10 +20,12 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("splat_kernels",)
+SOURCES = ("splat_kernels", "nn1_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -82,3 +84,29 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it if needed."""
     build((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
+    """For a kernel wrapper: True if every tensor lies on the CPU (plain
+    version), False if all lie on one CUDA device (kernel); raises
+    otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return False
+
+
+def check(name: str, t: torch.Tensor, what: str, dtypes, shape) -> None:
+    """For a kernel wrapper: ``t`` has one of ``dtypes``, the given shape,
+    and fewer than 2^31 elements (the kernels index with 32 bits)."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: {what} has dtype {t.dtype}, wants {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, wants {tuple(shape)}")
+    if t.numel() >= 2**31:
+        raise ValueError(f"{name}: {what} has 2^31 elements or more")

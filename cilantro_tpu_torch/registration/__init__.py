@@ -1,1 +1,1 @@
-"""Transform estimation (port of ``cilantro_tpu.registration``)."""
+"""Transform estimation and rigid ICP (port of ``cilantro_tpu.registration``)."""

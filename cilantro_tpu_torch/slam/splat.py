@@ -42,9 +42,6 @@ launch_counts: Dict[str, int] = {
     "flow_select_rows": 0,
 }
 
-_INT32_LIMIT = 2**31
-
-
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
@@ -90,29 +87,6 @@ def _launch(name: str, fn: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     launch_counts[name] += 1
-
-
-def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
-    """True if every tensor lies on the CPU (plain version), False if all
-    lie on one CUDA device (kernel); raises otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{name}: tensors on several devices {devices}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    return False
-
-
-def _check(name: str, t: torch.Tensor, what: str, dtypes, shape) -> None:
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name}: {what} has dtype {t.dtype}, wants {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, wants {tuple(shape)}")
-    if t.numel() >= _INT32_LIMIT:
-        raise ValueError(f"{name}: {what} has 2^31 elements or more")
 
 
 def _batch_stride(name: str, t: torch.Tensor, what: str) -> int:
@@ -169,9 +143,9 @@ def window_read_codes(
     r = radius
     b, c, hp, wp = img.shape
     h, w = hp - 2 * r, wp - 2 * r
-    _check(name, img, "img", (torch.int32,), (b, c, hp, wp))
-    _check(name, off, "off", (torch.int32,), (b, h, w))
-    if _on_cpu(name, img, off):
+    native.check(name, img, "img", (torch.int32,), (b, c, hp, wp))
+    native.check(name, off, "off", (torch.int32,), (b, h, w))
+    if native.on_cpu(name, img, off):
         return window_read_codes_plain(img, off, r)
     bstride = _batch_stride(name, img, "img")
     _contiguous(name, ("off", off))
@@ -233,9 +207,9 @@ def splat_argmin2(
     r = radius
     b, layers, hp, wp = key.shape
     h, w = hp - 2 * r, wp - 2 * r
-    _check(name, key, "key", (torch.float32,), (b, layers, hp, wp))
-    _check(name, off, "off", (torch.int32,), (b, layers, hp, wp))
-    if _on_cpu(name, key, off):
+    native.check(name, key, "key", (torch.float32,), (b, layers, hp, wp))
+    native.check(name, off, "off", (torch.int32,), (b, layers, hp, wp))
+    if native.on_cpu(name, key, off):
         return splat_argmin2_plain(key, off, r)
     _contiguous(name, ("key", key), ("off", off))
     dev = key.device
@@ -295,9 +269,9 @@ def flow_select_rows(
     r = radius
     b, layers, c, hp, wp = rows.shape
     h, w = hp - 2 * r, wp - 2 * r
-    _check(name, rows, "rows", (torch.float32,), (b, layers, c, hp, wp))
-    _check(name, code, "code", (torch.int32,), (b, h, w))
-    if _on_cpu(name, rows, code):
+    native.check(name, rows, "rows", (torch.float32,), (b, layers, c, hp, wp))
+    native.check(name, code, "code", (torch.int32,), (b, h, w))
+    if native.on_cpu(name, rows, code):
         return flow_select_rows_plain(rows, code, r)
     bstride = _batch_stride(name, rows, "rows")
     _contiguous(name, ("code", code))

@@ -49,3 +49,21 @@ def test_cuda_default_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.ate_rmse([np.eye(4)] * 3, [np.eye(4)] * 3)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_icp_entry_points_raise_without_cuda(monkeypatch):
+    from cilantro_tpu_torch import interop
+    from cilantro_tpu_torch.core import containers
+    from cilantro_tpu_torch.entry import entry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry()
+    pts = np.zeros((8, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        containers.from_numpy(pts)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.point_cloud_from_numpy(pts)
+    # icp runs where its tensors lie: a CPU call needs no card.
+    fwd, args = entry(device="cpu")
+    assert all(a.device.type == "cpu" for a in args)
