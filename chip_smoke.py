@@ -42,12 +42,29 @@ in order; any failure raises and exits non-zero without the final line:
    transform must come out within 5e-3 m and 5e-3 rad of the one that made
    it (0.027 m and 0.05 rad; the 10 iterations stop short of convergence);
 9. ``icp_multires`` on a 160×120 pair on the card and on the CPU (the plain
-   versions, pruned as on the card), agreeing within 1e-4 m / 1e-4 rad.
+   versions, pruned as on the card), agreeing within 1e-4 m / 1e-4 rad;
+10. the pool pipeline, the third main path: ``run_fusion_sequence`` on the
+    same 16 frames with the JAX bench's settings (pool of 430,080 rows,
+    stride-2 localize). The gather kernel must launch 2 × 15 + Σ ICP
+    iterations times (integrate's model-row gather and inverse-gather
+    update per frame, one per ICP iteration); ATE < 2e-4 m and more than
+    0.9·H·W finite live points. A repeat gives the host clock's spread; the
+    same run with the gather replaced by its plain version must launch
+    nothing and give the same poses and pool bit for bit;
+11. the gather kernel against its plain version, bit for bit, on the first
+    stream of each call site of phase 10, a random stream and one with 30%
+    wildcards at the integrate shape, timed as in phase 2 beside
+    ``torch.index_select`` and the byte bound (indices, output rows and
+    each distinct source row once, at 3.35 TB/s);
+12. a per-stage time split of the pool frame and a profiler window
+    (informational);
+13. the first 4 frames of the pool pipeline on the CPU (the plain
+    versions), agreeing with the card within 1e-4 m / 1e-4 rad.
 
 Each kernel's launch count in the kernels line comes from the path that
 runs it (counts set to 0 just before that path and read just after):
 splat fusion for the splat kernels, phase 6 for the compact kernel, phase
-7 for the masked one, phase 8 for the fused one.
+7 for the masked one, phase 8 for the fused one, phase 10 for the gather.
 
 Every line of standard output before the last two is one JSON object. The
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -56,6 +73,7 @@ gives them; the last is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -74,6 +92,7 @@ H, W = 480, 640
 HM, WM = H + 2 * MARGIN, W + 2 * MARGIN  # the model grid: 512 x 672
 FRAMES, CPU_FRAMES = 16, 4
 REPS = 25
+POOL_CAPACITY = 430_080  # int(1.4 · H · W), the JAX bench's pool (bench.py:374-377)
 
 
 def emit(**record):
@@ -594,6 +613,245 @@ REPLACES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# The pool pipeline and its gather kernel.
+# ---------------------------------------------------------------------------
+
+
+def pool_config():
+    from cilantro_tpu_torch.slam.fusion import FusionConfig
+
+    return FusionConfig(localize_stride=2)
+
+
+@contextlib.contextmanager
+def gather_replaced(fn):
+    """A context in which the pool pipeline's gathers call ``fn``."""
+    from unittest import mock
+
+    from cilantro_tpu_torch.correspondence import projective
+    from cilantro_tpu_torch.slam import fusion
+
+    with mock.patch.object(fusion, "coalesced_gather", fn), \
+            mock.patch.object(projective, "coalesced_gather", fn):
+        yield
+
+
+def gather_site(src, idx) -> str:
+    """The call site of a main-path gather, told by its shapes: the ICP
+    target is 8 wide, integrate gathers H·W rows of the pool, the update
+    gathers a row of the frame for each pool slot."""
+    if src.shape[1] == 8:
+        return "icp_projective"
+    return "inverse_gather_update" if idx.shape[0] == POOL_CAPACITY else "integrate_rows"
+
+
+def pool_main_path(depths, gt, k, card):
+    """Phase 10: ``run_fusion_sequence`` on the 16 frames, recording the
+    first ``(src, idx)`` of each gather call site; then a repeat for the
+    host clock's spread and the same sequence with the gather replaced by
+    its plain version (no launch, the same bits)."""
+    from cilantro_tpu_torch.core import coalesced as cg
+    from cilantro_tpu_torch.slam.driver import ate_rmse, run_fusion_sequence
+
+    streams = {}
+    gather = cg.coalesced_gather
+
+    def recording(src, idx):
+        streams.setdefault(gather_site(src, idx), (src, idx))
+        return gather(src, idx)
+
+    def run():
+        return run_fusion_sequence(depths, k, map_capacity=POOL_CAPACITY,
+                                   cfg=pool_config(), device="cuda")
+
+    cg.reset_launch_counts()
+    with gather_replaced(recording):
+        fmap, met = run()
+    torch.cuda.synchronize()
+    launches = cg.launch_counts["coalesced_gather"]
+    tracked = FRAMES - 1
+    want = 2 * tracked + sum(met.icp_iterations[1:])
+    if launches != want:
+        raise AssertionError(f"pool main path: {launches} gather launches, want 2·{tracked} + ICP = {want}")
+    if sorted(streams) != ["icp_projective", "integrate_rows", "inverse_gather_update"]:
+        raise AssertionError(f"pool main path reached the gather from {sorted(streams)}")
+    ate = ate_rmse(met.poses, gt, device="cuda")
+    live = fmap.data[fmap.valid]
+    if not ate < 2e-4:
+        raise AssertionError(f"pool ATE {ate} m not below 2e-4 m")
+    if not (met.num_map_points > 0.9 * H * W and bool(torch.isfinite(live[:, 0:6]).all())):
+        raise AssertionError(f"pool map has {met.num_map_points} live points or non-finite values")
+    _, met2 = run()
+    cg.reset_launch_counts()
+    with gather_replaced(cg.coalesced_gather_plain):
+        fmap_plain, met_plain = run()
+    torch.cuda.synchronize()
+    if cg.launch_counts["coalesced_gather"] != 0:
+        raise AssertionError("the pool run with the plain gather launched the gather kernel")
+    same = all(np.array_equal(a, b) for a, b in zip(met.poses, met_plain.poses)) and torch.equal(
+        fmap.data.view(torch.int32), fmap_plain.data.view(torch.int32)
+    )
+    if not same:
+        raise AssertionError("the gather kernel and its plain version gave different poses or pools")
+    spf = met.seconds_per_frame
+    emit(
+        phase="pool_main_path", pipeline="pool", frames=FRAMES, height=H, width=W,
+        map_capacity=POOL_CAPACITY, localize_stride=2,
+        launches={"coalesced_gather": launches}, icp_iterations=met.icp_iterations,
+        ms_per_frame=spf * 1e3, frames_per_s=1.0 / spf,
+        ms_per_frame_repeat=met2.seconds_per_frame * 1e3, frames_per_s_repeat=1.0 / met2.seconds_per_frame,
+        ms_per_frame_plain_gather=met_plain.seconds_per_frame * 1e3,
+        ate_m=ate, map_points=met.num_map_points, plain_gather_bit_identical=True, card=card,
+    )
+    return launches, streams, met
+
+
+def gather_kernel_checks(cg, streams):
+    """Phase 11: the gather kernel against its plain version, bit for bit,
+    on the three recorded streams, a uniformly random one and one with 30%
+    wildcards at the integrate shape; timed beside the plain version,
+    ``torch.index_select`` (the yardstick) and the byte bound: each index
+    read once, each output row written once, each distinct source row
+    read once."""
+    rng = np.random.default_rng(1)
+    src, idx = streams["integrate_rows"]
+    c = src.shape[0]
+    rand = torch.from_numpy(rng.integers(0, c, idx.shape[0]).astype(np.int32)).to(idx.device)
+    wild = idx.clone()
+    wild[torch.from_numpy(rng.random(idx.shape[0]) < 0.3).to(idx.device)] = -1
+    cases = dict(streams, random=(src, rand), wildcards_30pct=(src, wild))
+    out = {}
+    for label, (s, i) in cases.items():
+        kernel = lambda: cg.coalesced_gather(s, i)  # noqa: E731
+        plain = lambda: cg.coalesced_gather_plain(s, i)  # noqa: E731
+        library = lambda: torch.index_select(s, 0, i.clamp(0, s.shape[0] - 1))  # noqa: E731
+        k_out, p_out = kernel(), plain()
+        torch.cuda.synchronize()
+        assert_same_bits(f"coalesced_gather ({label})", [k_out], [p_out])
+        n, w = i.shape[0], s.shape[1]
+        distinct = int(torch.unique(i.clamp(0, s.shape[0] - 1)).numel())
+        nbytes = n * 4 + n * w * 4 + distinct * w * 4
+        entry = dict(
+            name="coalesced_gather", route="cuda", source="cilantro_tpu_torch/csrc/gather_kernels.cu",
+            replaces="cilantro_tpu/core/coalesced.py:137", max_abs_err=max_abs_err(k_out, p_out),
+            ms=device_ms(kernel), plain_ms=device_ms(plain),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=device_ms(library),
+            library_is="torch.index_select of the clamped indices (a yardstick; the port never calls it)",
+            bytes=nbytes, rows=n, src_rows=s.shape[0], width=w, distinct_rows=distinct,
+            wildcards=int((i < 0).sum()),
+        )
+        emit(phase="gather_kernel_vs_plain", stream=label, tolerance="bit-exact", **entry)
+        out[label] = entry
+    return out
+
+
+def pool_stage_split(fusion, depths, k, dev, frames=6):
+    """Phase 12a: host time of frame prep, localize and integrate per
+    frame (each ended with a synchronise), median over the steady frames."""
+    from cilantro_tpu_torch.core.rgbd import depth_to_points_normals
+    from cilantro_tpu_torch.core.transforms import identity
+
+    cfg = pool_config()
+    d = [torch.as_tensor(x, device=dev) for x in depths[: frames + 2]]
+    f0 = depth_to_points_normals(d[0], k)
+    fmap = fusion.init_map_from_frame(POOL_CAPACITY, f0[0], f0[1], None, f0[2])
+    pose, packed = identity(3, device=dev), None
+    sub = (torch.arange(0, H, 2, device=dev)[:, None] * W + torch.arange(0, W, 2, device=dev)).reshape(-1)
+    split = {"frame_prep": [], "localize": [], "integrate": []}
+    for depth in d[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pts, nrm, valid = depth_to_points_normals(depth, k)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pose, _ = fusion.localize(fmap, pts[sub], nrm[sub], valid[sub], pose, k, height=H, width=W,
+                                  cfg=cfg, packed_target=packed)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fmap, _, packed = fusion.integrate_frame_with_imap(fmap, pts, nrm, None, valid, pose, k,
+                                                           height=H, width=W, cfg=cfg)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[name].append(dt * 1e3)
+    # The first frame renders its own target and meets cold caches.
+    return {name: statistics.median(v[1:]) for name, v in split.items()}
+
+
+def pool_profile(fusion, depths, k, dev, ms_per_frame, frames=6):
+    """Phase 12b: :func:`profile_once` over ``frames`` steady frames of the
+    pool pipeline, per frame."""
+    from cilantro_tpu_torch.core.rgbd import depth_to_points_normals
+    from cilantro_tpu_torch.core.transforms import identity
+
+    cfg = pool_config()
+    clouds = [depth_to_points_normals(torch.as_tensor(x, device=dev), k) for x in depths[: frames + 2]]
+    fmap = fusion.init_map_from_frame(POOL_CAPACITY, *clouds[0][:2], None, clouds[0][2])
+    step = fusion.fusion_step(fmap, *clouds[1][:2], None, clouds[1][2], identity(3, device=dev), k,
+                              height=H, width=W, cfg=cfg)
+    state = {"fmap": step[0], "pose": step[1], "packed": step[4]}
+
+    def run():
+        for pts, nrm, valid in clouds[2:]:
+            fmap, pose, _, _, packed = fusion.fusion_step(
+                state["fmap"], pts, nrm, None, valid, state["pose"], k,
+                cached_packed_target=state["packed"], height=H, width=W, cfg=cfg,
+            )
+            state.update(fmap=fmap, pose=pose, packed=packed)
+
+    return profile_once(run, ms_per_frame, runs=len(clouds) - 2)
+
+
+def pool_driver_frames(depths, k):
+    """Phase 12c: host ms of each tracked frame of ``run_fusion_sequence``
+    (from ``on_frame`` timestamps, each taken after a synchronise), and the
+    steady ms/frame with the gather kernel and with its plain version in 5
+    pairs whose order alternates (kernel-plain, plain-kernel, ...): whether
+    the kernel moves the frame beyond the host clock's spread."""
+    from cilantro_tpu_torch.core import coalesced as cg
+    from cilantro_tpu_torch.slam.driver import run_fusion_sequence
+
+    def ms_per_frame(kernel, **kw):
+        with gather_replaced(cg.coalesced_gather if kernel else cg.coalesced_gather_plain):
+            _, met = run_fusion_sequence(depths, k, map_capacity=POOL_CAPACITY,
+                                         cfg=pool_config(), device="cuda", **kw)
+        return met.seconds_per_frame * 1e3
+
+    stamps = []
+    ms_per_frame(True, on_frame=lambda fi, fmap, pose: stamps.append(time.perf_counter()))
+    per_frame = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    turns = {True: [], False: []}
+    for pair in range(5):
+        for kernel in ((True, False) if pair % 2 == 0 else (False, True)):
+            turns[kernel].append(ms_per_frame(kernel))
+    return {
+        "frame_ms_after_first": per_frame, "frame_ms_median": statistics.median(per_frame),
+        "ms_per_frame_kernel": turns[True], "ms_per_frame_plain_gather": turns[False],
+        "median_kernel": statistics.median(turns[True]),
+        "median_plain_gather": statistics.median(turns[False]),
+        "pairs_kernel_faster": sum(a < b for a, b in zip(turns[True], turns[False])),
+    }
+
+
+def pool_card_vs_cpu(cg, depths, k, card_poses):
+    """Phase 13: the first frames through the same entry point on the CPU
+    (the plain versions): no launch, poses as the card's."""
+    from cilantro_tpu_torch.slam.driver import run_fusion_sequence
+
+    cg.reset_launch_counts()
+    _, met = run_fusion_sequence(depths[:CPU_FRAMES], k, map_capacity=POOL_CAPACITY,
+                                 cfg=pool_config(), device="cpu")
+    if cg.launch_counts["coalesced_gather"] != 0:
+        raise AssertionError("the CPU pool run launched the gather kernel")
+    dt = max(float(np.abs(a[:3, 3] - b[:3, 3]).max()) for a, b in zip(card_poses, met.poses))
+    dr = max(rot_angle(a[:3, :3], b[:3, :3]) for a, b in zip(card_poses, met.poses))
+    emit(phase="pool_card_vs_cpu", frames=CPU_FRAMES, max_translation_diff_m=dt,
+         max_rotation_diff_rad=dr, icp_iterations_cpu=met.icp_iterations)
+    if not (dt < 1e-4 and dr < 1e-4):
+        raise AssertionError(f"card and CPU pool poses differ by {dt} m / {dr} rad")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -701,8 +959,29 @@ def main() -> int:
     # 9. ICP card vs CPU.
     icp_card_vs_cpu(fused_nn, icp_mod, CameraIntrinsics.make(131.25, 131.25, 79.5, 59.5))
 
+    # 10-13. The pool pipeline with the gather kernel.
+    from cilantro_tpu_torch.core import coalesced as cg
+    from cilantro_tpu_torch.slam import fusion
+
+    gather_launches, streams, pool_met = pool_main_path(depths, gt, k, card)
+    gathers = gather_kernel_checks(cg, streams)
+    gather_entry = dict(gathers["integrate_rows"], launches=gather_launches,
+                        path="run_fusion_sequence, pool pipeline, 16 frames")
+    emit(phase="pool_stage_split_ms_per_frame", card=card, **pool_stage_split(fusion, depths, k, dev))
+    try:
+        emit(phase="pool_profile", card=card,
+             **pool_profile(fusion, depths, k, dev, pool_met.seconds_per_frame * 1e3))
+    except Exception as e:  # informational phase: report and go on
+        emit(phase="pool_profile", device_busy="not measured", error=f"{type(e).__name__}: {e}")
+    try:
+        emit(phase="pool_driver_frames", card=card, **pool_driver_frames(depths, k))
+    except Exception as e:  # informational phase: report and go on
+        emit(phase="pool_driver_frames", error=f"{type(e).__name__}: {e}")
+    pool_card_vs_cpu(cg, depths, k, pool_met.poses)
+
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]
+    kernels.append(gather_entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

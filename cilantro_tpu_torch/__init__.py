@@ -12,14 +12,20 @@ Every TPU (Pallas) kernel on a ported path is a CUDA C++ kernel under
 The wrapper runs the plain version only for CPU tensors; for a CUDA tensor
 it launches the kernel or raises.
 
-Ported so far (splat fusion, the headline pipeline):
+Ported so far (splat fusion, rigid ICP, pool fusion):
 
 core            ``Transform`` and its ops, ``CameraIntrinsics``, depth →
-                points (+normals)
-registration    ``estimate_rigid_point_to_point``
+                points (+normals), the z-buffer, ``PointCloud``, grids,
+                the wide-row gather kernel (``core/coalesced.py``)
+neighbors       exact 1-NN and the nn1 kernels (``neighbors/fused_nn.py``)
+correspondence  nearest-neighbour and projective correspondences
+registration    the 3-D estimators, ``icp``, ``icp_multires``,
+                ``icp_projective``
 slam            the splat kernels (``slam/splat.py``), splat fusion
-                (``slam/splat_fusion.py``), ``ate_rmse`` and
-                ``synthetic_sequence`` (``slam/driver.py``)
+                (``slam/splat_fusion.py``), pool fusion
+                (``slam/fusion.py``), ``run_fusion_sequence``,
+                ``ate_rmse`` and ``synthetic_sequence``
+                (``slam/driver.py``)
 interop         build port state from the JAX package's leaves (numpy)
 """
 

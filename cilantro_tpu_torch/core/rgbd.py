@@ -1,10 +1,13 @@
-"""Depth image → point cloud (port of ``cilantro_tpu/core/rgbd.py``, the
-part splat fusion runs).
+"""Depth image ↔ point cloud (port of ``cilantro_tpu/core/rgbd.py``).
 
 Images are row-major ``(H, W)``; pixel (u, v) = (column, row); points are in
 the camera frame (+z forward) unless a pose is given. The float32
 expressions keep the JAX module's order (``(u − cx)·z/fx``) so that both
 packages round alike.
+
+The z-buffer (:func:`_zbuffer_winner`) keeps the JAX module's winner rule
+exactly: a scatter-min of a packed int32 key (quantized z above the point
+index). Exact keys would pick other winners among ties in one z bucket.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .containers import PointCloud
+from .grid import floor_int32
 from .transforms import Transform, transform_normals, transform_points
 
 
@@ -109,3 +114,112 @@ def depth_to_points_normals(
         nrm_o = transform_normals(pose, nrm_o)
     pts_o = torch.where(valid.reshape(-1)[:, None], pts_o, 1e30)
     return pts_o, nrm_o, (valid & nvalid).reshape(-1)
+
+
+def project_points(
+    points: torch.Tensor, intrinsics: CameraIntrinsics
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Camera-frame points → ``(u, v)`` pixel coordinates (int32, rounded
+    half to even) and depth. Out-of-range coordinates saturate to the int32
+    limits, as XLA converts."""
+    z = points[:, 2]
+    safe_z = torch.where(z > 0, z, 1.0)
+    u = torch.round(points[:, 0] * intrinsics.fx / safe_z + intrinsics.cx)
+    v = torch.round(points[:, 1] * intrinsics.fy / safe_z + intrinsics.cy)
+    return floor_int32(u), floor_int32(v), z
+
+
+_INVALID_KEY = 2**31 - 1
+
+
+def _zbuffer_winner(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    intrinsics: CameraIntrinsics,
+    h: int,
+    w: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-pixel winning point index and its depth: ``(index (H, W) int32,
+    depth (H, W))``; empty pixels hold -1 and depth 0.
+
+    The winner is the smallest packed key ``(zq << idx_bits) | local_idx``
+    with ``idx_bits = min(bit_length(n-1), 20)`` and ``zq`` the depth
+    quantized to ``2^(31-idx_bits)`` levels of ``[0, z_max]`` (clipped to
+    ``levels - 2``, so that no key equals the empty sentinel): the nearest
+    z bucket, and the smallest index inside it. Points beyond 2^20 form
+    groups of 2^20 whose images combine by an elementwise key min (ties go
+    to the earlier group). The scatter-min writes an ``(H·W + 1,)`` image
+    whose last slot takes the dropped points; a min is order-free, so the
+    result is the same on every device."""
+    n = points.shape[0]
+    dev = points.device
+    u, v, z = project_points(points, intrinsics)
+    ok = valid & (z > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    group = 1 << 20
+    n_groups = (n + group - 1) // group
+    idx_bits = min(max(n - 1, 1).bit_length(), 20)
+    levels = float(1 << (31 - idx_bits))
+    pix = torch.where(ok, v * w + u, 0)
+    z_max = torch.max(torch.where(ok, z, 0.0)) + 1e-6
+    scale = scalar_like(levels, z) / z_max
+    zq = torch.clamp(z * scale, 0, levels - 2).to(torch.int32)
+    tgt_all = torch.where(ok, pix, h * w).long()
+
+    best_key = best_group = None
+    for g in range(n_groups):
+        lo, hi = g * group, min((g + 1) * group, n)
+        local_idx = torch.arange(hi - lo, dtype=torch.int32, device=dev)
+        key = torch.where(ok[lo:hi], (zq[lo:hi] << idx_bits) | local_idx, _INVALID_KEY)
+        img = torch.full((h * w + 1,), _INVALID_KEY, dtype=torch.int32, device=dev)
+        img = img.scatter_reduce_(0, tgt_all[lo:hi], key, "amin")[: h * w]
+        if best_key is None:
+            best_key, best_group = img, torch.zeros_like(img)
+        else:
+            better = img < best_key
+            best_key = torch.where(better, img, best_key)
+            best_group = torch.where(better, g, best_group)
+
+    has = best_key != _INVALID_KEY
+    widx = torch.where(has, (best_key & ((1 << idx_bits) - 1)) + best_group * group, -1)
+    depth = torch.where(has, z[torch.where(has, widx, 0).long()], 0.0)
+    return widx.reshape(h, w), depth.reshape(h, w)
+
+
+def points_to_index_map(
+    points: torch.Tensor,
+    intrinsics: CameraIntrinsics,
+    h: int,
+    w: int,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Z-buffered point-index image; -1 = empty pixel."""
+    if valid is None:
+        valid = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
+    return _zbuffer_winner(points, valid, intrinsics, h, w)[0]
+
+
+def points_to_depth_image(
+    points: torch.Tensor,
+    intrinsics: CameraIntrinsics,
+    h: int,
+    w: int,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Render points to a z-buffered depth image (0 = empty)."""
+    if valid is None:
+        valid = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
+    return _zbuffer_winner(points, valid, intrinsics, h, w)[1]
+
+
+def cloud_to_rgbd(
+    cloud: PointCloud, intrinsics: CameraIntrinsics, h: int, w: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Points (+colors) → ``(depth (H, W), rgb (H, W, 3))`` through the
+    z-buffer winner; rgb is 0 at empty pixels and without colors."""
+    index_map, depth_map = _zbuffer_winner(
+        cloud.points, cloud.valid_mask(), intrinsics, h, w
+    )
+    if cloud.colors is None:
+        return depth_map, torch.zeros((h, w, 3), dtype=torch.float32, device=depth_map.device)
+    rgb = cloud.colors[index_map.clamp(min=0).long()]
+    return depth_map, torch.where((index_map >= 0)[..., None], rgb, 0.0)

@@ -15,6 +15,7 @@ from . import resolve_device
 from .core.containers import PointCloud
 from .core.rgbd import CameraIntrinsics
 from .core.transforms import Transform
+from .slam.fusion import FusionMap
 from .slam.splat_fusion import SplatMap
 
 
@@ -32,6 +33,11 @@ def splat_map_from_numpy(rows, linear, translation, device="cuda") -> SplatMap:
         rows=torch.as_tensor(np.asarray(rows, np.float32), device=dev),
         pose=transform_from_numpy(linear, translation, device=dev),
     )
+
+
+def fusion_map_from_numpy(data, device="cuda") -> FusionMap:
+    """A port pool from a JAX ``FusionMap``'s ``data`` ((C, 16) or (C, 8))."""
+    return FusionMap(data=torch.as_tensor(np.array(data, np.float32), device=resolve_device(device)))
 
 
 def intrinsics_from_numpy(fx, fy, cx, cy) -> CameraIntrinsics:

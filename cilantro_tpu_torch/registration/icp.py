@@ -1,11 +1,11 @@
-"""Rigid and affine single-transform ICP (port of the non-projective half of
-``cilantro_tpu/registration/icp.py``; projective ICP waits for the pool
-pipeline's slice).
+"""Rigid and affine single-transform ICP, and projective ICP for organized
+clouds (port of ``cilantro_tpu/registration/icp.py``).
 
-Each iteration updates the correspondences (one nn1 pass) and the estimate,
-until the update norm ``‖ΔR − I‖ + ‖Δt‖`` falls below the tolerance or the
-iteration budget runs out. The JAX package's ``lax.while_loop`` is a Python
-loop here with one host read of the update norm per iteration.
+Each iteration updates the correspondences (one nn1 pass, or one
+projective lookup) and the estimate, until the update norm
+``‖ΔR − I‖ + ‖Δt‖`` falls below the tolerance or the iteration budget runs
+out. The JAX package's ``lax.while_loop`` is a Python loop here with one
+host read of the update norm per iteration.
 
 On CUDA, a gated 3-D problem of Q·M ≥ 2²⁶ pairs builds a Morton-tile prune
 plan once (the dst cloud never moves) and each pass runs the compact nn1
@@ -266,3 +266,119 @@ def icp_multires(
         )
         tf = result.transform
     return result
+
+
+# ---------------------------------------------------------------------------
+# Projective ICP (frame-to-model, organized clouds).
+# ---------------------------------------------------------------------------
+
+
+def icp_projective(
+    src_points: torch.Tensor,
+    dst_points: torch.Tensor,
+    intrinsics,
+    *,
+    height: int,
+    width: int,
+    index_map: Optional[torch.Tensor] = None,
+    src_normals: Optional[torch.Tensor] = None,
+    dst_normals: Optional[torch.Tensor] = None,
+    src_valid: Optional[torch.Tensor] = None,
+    dst_valid: Optional[torch.Tensor] = None,
+    init: Optional[Transform] = None,
+    metric: str = "combined",
+    point_weight: float = 0.0,
+    plane_weight: float = 1.0,
+    max_iterations: int = 6,
+    convergence_tol: float = 5e-4,
+    max_gn_iterations: int = 1,
+    max_corr_dist_sq: Optional[float] = 0.01,
+) -> ICPResult:
+    """Rigid ICP with projective correspondences, both clouds in dst's
+    camera frame (defaults: 6 outer iterations, 1 GN iteration, tolerance
+    5e-4, as the reference fusion example). The dst index map is rendered
+    once and packed once, so an iteration does one gather."""
+    from ..correspondence.projective import build_projective_target, pack_projective_target
+
+    if index_map is None:
+        index_map = build_projective_target(
+            dst_points, intrinsics, height, width, dst_valid=dst_valid
+        )
+    packed = pack_projective_target(dst_points, dst_normals, index_map, dst_valid=dst_valid)
+    return icp_projective_packed(
+        src_points, packed, intrinsics, height=height, width=width,
+        src_normals=src_normals, src_valid=src_valid, init=init,
+        target_has_normals=dst_normals is not None, metric=metric,
+        point_weight=point_weight, plane_weight=plane_weight,
+        max_iterations=max_iterations, convergence_tol=convergence_tol,
+        max_gn_iterations=max_gn_iterations, max_corr_dist_sq=max_corr_dist_sq,
+    )
+
+
+def icp_projective_packed(
+    src_points: torch.Tensor,
+    packed_target: torch.Tensor,  # (H·W, 8) from pack_projective_target
+    intrinsics,
+    *,
+    height: int,
+    width: int,
+    src_normals: Optional[torch.Tensor] = None,
+    src_valid: Optional[torch.Tensor] = None,
+    init: Optional[Transform] = None,
+    target_has_normals: bool = True,
+    metric: str = "combined",
+    point_weight: float = 0.0,
+    plane_weight: float = 1.0,
+    max_iterations: int = 6,
+    convergence_tol: float = 5e-4,
+    max_gn_iterations: int = 1,
+    max_corr_dist_sq: Optional[float] = 0.01,
+) -> ICPResult:
+    """Projective ICP over a packed per-pixel target: the loop shared by
+    :func:`icp_projective` and fusion's localize. Each iteration's gather
+    goes through :func:`..core.coalesced.coalesced_gather`.
+    ``metric="combined"`` with source normals and a target with normals
+    runs the symmetric metric."""
+    from ..correspondence.projective import find_projective_correspondences_packed
+
+    if metric not in ("point_to_point", "combined"):
+        raise ValueError(f"unknown projective-ICP metric {metric!r}")
+    dev = src_points.device
+    if init is None:
+        init = identity(src_points.shape[1], dtype=src_points.dtype, device=dev)
+    use_symmetric = metric == "combined" and src_normals is not None and target_has_normals
+
+    tf = init
+    dn = torch.tensor(float("inf"), dtype=src_points.dtype, device=dev)
+    it = 0
+    ncorr = torch.zeros((), dtype=torch.int32, device=dev)
+    while it < max_iterations and dn.item() >= convergence_tol:
+        s, dgt, ngt, w = find_projective_correspondences_packed(
+            src_points, packed_target, intrinsics, height, width, tf=tf,
+            src_valid=src_valid, max_distance=max_corr_dist_sq,
+        )
+        if use_symmetric:
+            delta, _ = estimate_rigid_symmetric_metric(
+                s, dgt, tf.apply_normals(src_normals), ngt,
+                point_weights=w * point_weight, plane_weights=w * plane_weight,
+                max_iterations=max_gn_iterations,
+            )
+        elif target_has_normals and metric == "combined":
+            delta, _ = estimate_rigid_combined_metric(
+                s, dgt, ngt,
+                point_weights=w * point_weight, plane_weights=w * plane_weight,
+                max_iterations=max_gn_iterations,
+            )
+        else:
+            delta, _ = estimate_rigid_point_to_point(s, dgt, w)
+        tf = reproject_rigid(compose(delta, tf))
+        dn = _delta_norm(delta)
+        it += 1
+        ncorr = torch.sum(w).to(torch.int32)
+    return ICPResult(
+        transform=tf,
+        iterations=torch.tensor(it, dtype=torch.int32),
+        delta_norm=dn,
+        converged=dn < convergence_tol,
+        num_correspondences=ncorr,
+    )

@@ -1,20 +1,115 @@
-"""Trajectory metric and synthetic input (port of the host-only parts of
+"""Fusion-sequence driver, trajectory metric and synthetic input (port of
 ``cilantro_tpu/slam/driver.py``).
 
+:func:`run_fusion_sequence` is the host loop of the pool pipeline.
 :func:`synthetic_sequence` is a verbatim copy of the JAX package's numpy
 renderer: for the same arguments it returns bit-identical depths and poses.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import sys
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.rgbd import CameraIntrinsics
+from ..core.rgbd import CameraIntrinsics, depth_to_points_normals
+from ..core.transforms import identity
 from ..registration.transform_estimation import estimate_rigid_point_to_point
+from .fusion import FusionConfig, FusionMap, fusion_step, init_map_from_frame
+
+
+@dataclasses.dataclass
+class FusionMetrics:
+    poses: List[np.ndarray]  # (4, 4) camera-to-world per frame
+    frames: int
+    seconds_per_frame: float
+    icp_iterations: List[int]
+    num_map_points: int
+
+
+def run_fusion_sequence(
+    depths: Sequence[np.ndarray],  # (H, W) metric depth per frame
+    intrinsics: CameraIntrinsics,
+    *,
+    colors: Optional[Sequence[np.ndarray]] = None,
+    map_capacity: Optional[int] = None,
+    cfg: FusionConfig = FusionConfig(),
+    integrate_every: int = 1,
+    on_frame=None,
+    device="cuda",
+) -> Tuple[FusionMap, FusionMetrics]:
+    """Frame-to-model fusion over a depth sequence on ``device`` (world
+    frame = first camera). Returns the final map and per-frame metrics;
+    ``seconds_per_frame`` is the steady state by the host clock, the first
+    tracked frame excluded.
+
+    ``on_frame``: optional ``callback(frame_idx, fmap, pose)`` after each
+    frame; an exception in it is reported and the run goes on, and its time
+    is not counted."""
+    dev = resolve_device(device)
+    h, w = depths[0].shape
+    if map_capacity is None:
+        map_capacity = 4 * h * w
+    staged = [torch.as_tensor(np.asarray(d, np.float32), device=dev) for d in depths]
+    col_staged = (
+        [torch.as_tensor(np.asarray(c, np.float32).reshape(-1, 3), device=dev) for c in colors]
+        if colors is not None else None
+    )
+    pts, nrm, valid = depth_to_points_normals(staged[0], intrinsics)
+    fmap = init_map_from_frame(
+        map_capacity, pts, nrm, col_staged[0] if col_staged else None, valid
+    )
+    pose = identity(3, device=dev)
+    poses_dev = [pose.matrix()]
+    iterations = [0]
+    imap = packed = None
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    t_first = None
+    t_hook = 0.0
+    for fi in range(1, len(depths)):
+        pts, nrm, valid = depth_to_points_normals(staged[fi], intrinsics)
+        fmap, pose, res, imap, packed = fusion_step(
+            fmap, pts, nrm, col_staged[fi] if col_staged else None, valid, pose, intrinsics,
+            cached_index_map=imap, cached_packed_target=packed,
+            height=h, width=w, cfg=cfg, do_integrate=fi % integrate_every == 0,
+        )
+        poses_dev.append(pose.matrix())
+        iterations.append(int(res.iterations))
+        if t_first is None:
+            sync()
+            t_first = time.perf_counter()
+        if on_frame is not None:
+            sync()
+            tc = time.perf_counter()
+            try:
+                on_frame(fi, fmap, pose)
+            except Exception as e:  # a viewer must never stop the pipeline
+                print(f"on_frame failed at frame {fi}: {type(e).__name__}: {e}", file=sys.stderr)
+            t_hook += time.perf_counter() - tc
+    n_map = int(fmap.num_points())
+    t_end = time.perf_counter()
+    n_steps = len(depths) - 1
+    if n_steps >= 2:
+        dt = (t_end - t_first - t_hook) / (n_steps - 1)
+    else:
+        dt = (t_end - t0 - t_hook) / max(n_steps, 1)
+    return fmap, FusionMetrics(
+        poses=[p.cpu().numpy() for p in poses_dev],
+        frames=len(depths),
+        seconds_per_frame=dt,
+        icp_iterations=iterations,
+        num_map_points=n_map,
+    )
 
 
 def ate_rmse(

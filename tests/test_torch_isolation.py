@@ -48,6 +48,10 @@ def test_cuda_default_raises_without_cuda(monkeypatch):
         splat_fusion.run_splat_sequence(depths, CameraIntrinsics.kinect_640())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         driver.ate_rmse([np.eye(4)] * 3, [np.eye(4)] * 3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        driver.run_fusion_sequence(depths, CameraIntrinsics.kinect_640())
+    _, metrics = driver.run_fusion_sequence(depths, CameraIntrinsics.kinect_640(), device="cpu")
+    assert metrics.frames == 2
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -64,6 +68,8 @@ def test_icp_entry_points_raise_without_cuda(monkeypatch):
         containers.from_numpy(pts)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         interop.point_cloud_from_numpy(pts)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.fusion_map_from_numpy(np.zeros((16, 16), np.float32))
     # icp runs where its tensors lie: a CPU call needs no card.
     fwd, args = entry(device="cpu")
     assert all(a.device.type == "cpu" for a in args)
