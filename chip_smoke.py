@@ -59,12 +59,46 @@ in order; any failure raises and exits non-zero without the final line:
 12. a per-stage time split of the pool frame and a profiler window
     (informational);
 13. the first 4 frames of the pool pipeline on the CPU (the plain
-    versions), agreeing with the card within 1e-4 m / 1e-4 rad.
+    versions), agreeing with the card within 1e-4 m / 1e-4 rad;
+14. kNN normals, the fourth main path: ``PointCloud.with_normals_knn(k=12)``
+    on frame 0 back-projected by ``depth_to_points`` (307,200 rows, invalid
+    pixels masked). The compact kNN kernel must launch; the radius-doubling
+    rounds, the surviving and visited tile pairs, host ms after a warm-up,
+    a profiler window and the median |cos| to the depth image's normals
+    (> 0.9); then (informational) the normals' Jacobi eigensolver on every
+    neighbourhood beside cuSOLVER's ``torch.linalg.eigh``;
+15. frame 1 onto frame 0 with ``icp_multires`` and the bench levels, the
+    destination normals from ``with_normals_knn``: phase 6's bounds;
+16. ``with_normals_knn(k=12)`` on frame 0 grid-downsampled below 8,192
+    points (Q·M < 2²⁶): the full kNN kernel must launch, the compact one
+    not;
+17. the JAX bench's neighbour rows on the frame's valid points
+    (informational): ``knn(q, q, 10, exclude_self=True)``,
+    ``radius_search_pruned(q, q, 0.01, 10, exclude_self=True)`` and
+    ``with_normals_radius(0.01, max_neighbors=16)``, which must take the
+    compact kernel, and ``with_normals_radius(0.01)`` at its default cap
+    of 32, which must take the grid search (no kernel); host ms, peak
+    device memory and the profiler's device kernel ms;
+18. each kNN kernel against its plain version, bit for bit, timed as in
+    phase 2 beside its arithmetic bound (10 operations per visited pair):
+    the compact kernel at phase 14's first-round pair list (k = 12, with
+    and without the diagonal; its plain version syncs, so it is timed on
+    the host clock), the compact wrapper's full-kernel fallback on 16
+    query tiles, the full kernel at phase 16's shape and at 4096² random
+    points with k = 1, 12 and 65, beside ``torch.cdist`` + ``topk``;
+19. ``with_normals_knn(k=12)`` on a 160×120 frame on the card (pruned
+    kernel path) and on the CPU (the tiled scan): |cos| ≥ 0.999 on at
+    least 99% of the points valid in both;
+20. ``scale2``, the wide-row probe's copy kernel, once on the (CAP/8, 128)
+    pool view, bit for bit against ``2.0 * x``, beside ``torch.mul`` and
+    its byte bound.
 
 Each kernel's launch count in the kernels line comes from the path that
 runs it (counts set to 0 just before that path and read just after):
 splat fusion for the splat kernels, phase 6 for the compact kernel, phase
-7 for the masked one, phase 8 for the fused one, phase 10 for the gather.
+7 for the masked one, phase 8 for the fused one, phase 10 for the gather,
+phase 14 for the compact kNN kernel, phase 16 for the full one, phase 20
+for ``scale2``.
 
 Every line of standard output before the last two is one JSON object. The
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -610,6 +644,9 @@ REPLACES = {
     "nn1_fused": "cilantro_tpu/neighbors/pallas_nn.py:151",
     "nn1_masked": "cilantro_tpu/neighbors/pallas_nn.py:247",
     "nn1_compact": "cilantro_tpu/neighbors/pallas_nn.py:363",
+    "knn_full": "cilantro_tpu/neighbors/pallas_nn.py:861",
+    "knn_compact": "cilantro_tpu/neighbors/pallas_nn.py:821",
+    "scale2": "tools/wide_row_probe.py:160",
 }
 
 
@@ -852,6 +889,365 @@ def pool_card_vs_cpu(cg, depths, k, card_poses):
         raise AssertionError(f"card and CPU pool poses differ by {dt} m / {dr} rad")
 
 
+# ---------------------------------------------------------------------------
+# The neighbour engines, kNN normals and the two kNN kernels.
+# ---------------------------------------------------------------------------
+
+KNN_K = 12
+FULL_PATH_POINTS = 8192  # below it Q·M < 2^26: knn takes the full kernel
+
+
+def host_ms(fn, reps=3) -> float:
+    """Median host-clock ms of ``fn`` (synchronised before and after), for
+    functions that read results back to the host themselves."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def frame_cloud(depth, k, dev):
+    """A frame back-projected by ``depth_to_points``: H·W rows, invalid
+    pixels masked (and at 1e30)."""
+    from cilantro_tpu_torch.core.containers import PointCloud
+    from cilantro_tpu_torch.core.rgbd import depth_to_points
+
+    pts, valid = depth_to_points(torch.as_tensor(depth, device=dev), k)
+    return PointCloud(points=pts, valid=valid)
+
+
+@contextlib.contextmanager
+def compact_calls(fk):
+    """Record every ``_knn_compact`` call of the pruned engines (one per
+    radius-doubling round of ``knn_pruned``, one per ``radius_search_pruned``):
+    its operands, survivors and budget."""
+    from unittest import mock
+
+    calls = []
+    inner = fk._knn_compact
+
+    def recording(qp, kp, tile_mask, *, k, budget, tile_q, tile_m, exclude_diag=False, ids=None):
+        ids = fk._live_pairs(tile_mask) if ids is None else ids
+        calls.append(dict(qp=qp, kp=kp, mask=tile_mask, survivors=int(ids.shape[0]), budget=budget,
+                          tile_q=tile_q, tile_m=tile_m))
+        return inner(qp, kp, tile_mask, k=k, budget=budget, tile_q=tile_q, tile_m=tile_m,
+                     exclude_diag=exclude_diag, ids=ids)
+
+    with mock.patch.object(fk, "_knn_compact", recording):
+        yield calls
+
+
+def round_stats(calls):
+    """Rounds, visited tile and point pairs and full-kernel fallbacks of
+    recorded compact calls."""
+    kept = [c for c in calls if c["survivors"] <= c["budget"]]
+    return {
+        "rounds": len(calls),
+        "survivors_per_round": [c["survivors"] for c in calls],
+        "budget": calls[0]["budget"] if calls else None,
+        "full_fallbacks": len(calls) - len(kept),
+        "visited_tile_pairs": sum(c["survivors"] for c in kept),
+        "visited_point_pairs": sum(c["survivors"] * c["tile_q"] * c["tile_m"] for c in kept),
+    }
+
+
+def median_abs_cos(a, b, both) -> float:
+    return float(torch.median(torch.abs(torch.sum(a[both] * b[both], dim=-1))))
+
+
+def knn_normals_main_path(fk, cloud, ref_normals, ref_valid, card):
+    """Phase 14: ``with_normals_knn(k=12)`` on the 307,200-point frame, the
+    slice's main path: the compact kernel must run; rounds, visited pairs,
+    host ms after a warm-up, the device's busy share, and the median |cos|
+    against the depth image's normals (> 0.9)."""
+    cloud.with_normals_knn(KNN_K)  # warm-up
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    with compact_calls(fk) as calls:
+        t0 = time.perf_counter()
+        out = cloud.with_normals_knn(KNN_K)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fk.launch_counts)
+    if launches["knn_compact"] == 0:
+        raise AssertionError(f"kNN normals did not run the compact kernel: {launches}")
+    both = out.valid & ref_valid
+    cos = median_abs_cos(out.normals, ref_normals, both)
+    if not (cos > 0.9 and bool(torch.isfinite(out.normals).all())):
+        raise AssertionError(f"kNN normals: median |cos| {cos} to the depth normals, want > 0.9")
+    ms_repeat = host_ms(lambda: cloud.with_normals_knn(KNN_K), reps=1)
+    emit(phase="knn_normals_main_path", points=int(cloud.capacity), valid=int(cloud.valid.sum()),
+         k=KNN_K, launches=launches, **round_stats(calls), ms=ms, ms_repeat=ms_repeat,
+         normals_valid=int(out.valid.sum()), compared=int(both.sum()),
+         median_abs_cos_to_depth_normals=cos, card=card)
+    try:
+        emit(phase="knn_normals_profile", card=card,
+             **profile_once(lambda: cloud.with_normals_knn(KNN_K), ms_repeat))
+    except Exception as e:  # informational phase: report and go on
+        emit(phase="knn_normals_profile", device_busy="not measured", error=f"{type(e).__name__}: {e}")
+    return out, launches, calls[0]
+
+
+def eigh_yardstick(cloud, card):
+    """Phase 14b (informational): the normals' batched 3×3 eigensolver,
+    ``eigh_sym`` (Jacobi, plain tensor ops) on every neighbourhood of the
+    frame, beside ``torch.linalg.eigh`` (cuSOLVER) on 16,384 of them and
+    whether cuSOLVER takes 32,768."""
+    from cilantro_tpu_torch.core.covariance import eigh_sym, neighborhood_mean_cov
+    from cilantro_tpu_torch.neighbors.api import knn_search
+
+    nb = knn_search(cloud.points, cloud.points, KNN_K, query_valid=cloud.valid, key_valid=cloud.valid)
+    _, cov, _ = neighborhood_mean_cov(cloud.points, nb.indices, nb.mask, 3)
+    record = {"matrices": int(cov.shape[0]), "eigh_sym_ms": device_ms(lambda: eigh_sym(cov)),
+              "linalg_eigh_16384_ms": device_ms(lambda: torch.linalg.eigh(cov[:16384]))}
+    w, v = eigh_sym(cov[:16384])
+    w_ref, v_ref = torch.linalg.eigh(cov[:16384])
+    record["max_eigenvalue_diff"] = float((w - w_ref).abs().max())
+    record["min_abs_cos_smallest_vector"] = float(torch.abs(torch.sum(v[..., 0] * v_ref[..., 0], -1)).min())
+    try:
+        torch.linalg.eigh(cov[:32768])
+        torch.cuda.synchronize()
+        record["linalg_eigh_32768"] = "ran"
+    except RuntimeError as e:
+        record["linalg_eigh_32768"] = f"{type(e).__name__}: {str(e)[:120]}"
+    emit(phase="eigh_yardstick", card=card, **record)
+
+
+def knn_normals_registration(fk, nn, icp_mod, src, cloud0, rel):
+    """Phase 15: frame 1 onto frame 0 with ``icp_multires`` and the bench
+    levels, the destination normals from ``with_normals_knn`` (computed
+    inside the counted run): held to phase 6's bounds."""
+    sp, _, sv = src
+    fk.reset_launch_counts()
+    nn.reset_launch_counts()
+    t0 = time.perf_counter()
+    dst = cloud0.with_normals_knn(KNN_K)
+    res = icp_mod.icp_multires(
+        sp, dst.points, dst_normals=dst.normals, src_valid=sv, dst_valid=dst.valid,
+        metric="combined", convergence_tol=1e-4, levels=BENCH_LEVELS,
+    )
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"knn_compact": fk.launch_counts["knn_compact"], "knn_full": fk.launch_counts["knn_full"],
+                "nn1_compact": nn.launch_counts["nn1_compact"]}
+    dt, dr = gt_error(res.transform.linear, res.transform.translation, rel)
+    emit(phase="knn_normals_registration", pipeline="with_normals_knn + icp_multires",
+         launches=launches, ms=ms, translation_error_m=dt, rotation_error_rad=dr,
+         iterations=int(res.iterations))
+    if launches["knn_compact"] == 0 or launches["nn1_compact"] == 0:
+        raise AssertionError(f"normals + registration launches {launches}")
+    if not (dt < 5e-4 and dr < 1e-4):
+        raise AssertionError(f"registration with kNN normals off by {dt} m / {dr} rad")
+
+
+def knn_full_path(fk, cloud0):
+    """Phase 16: ``with_normals_knn(k=12)`` on frame 0 grid-downsampled at
+    the smallest bin (2 cm upward in 2.5 mm steps) that leaves fewer than
+    8,192 points, so that ``knn`` takes the full kernel."""
+    from cilantro_tpu_torch.core.containers import compact
+
+    for i in range(80):
+        bin_size = 0.02 + 0.0025 * i
+        down = compact(cloud0.grid_downsampled(bin_size))
+        if down.capacity < FULL_PATH_POINTS:
+            break
+    down.with_normals_knn(KNN_K)  # warm-up
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = down.with_normals_knn(KNN_K)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(fk.launch_counts)
+    if launches["knn_full"] == 0 or launches["knn_compact"] != 0:
+        raise AssertionError(f"the downsampled kNN normals launched {launches}")
+    if not (bool(torch.isfinite(out.normals).all()) and int(out.valid.sum()) > 0.9 * down.capacity):
+        raise AssertionError("the downsampled kNN normals are not finite or mostly invalid")
+    emit(phase="knn_full_path", bin_size=bin_size, points=int(down.capacity), k=KNN_K,
+         launches=launches, ms=ms, normals_valid=int(out.valid.sum()))
+    return down, launches
+
+
+def bench_neighbour_rows(fk, cloud0, card):
+    """Phase 17 (informational): the JAX bench's neighbour rows on the
+    frame's valid points, host ms after a warm-up, peak device memory and
+    the profiler's device kernel ms; ``with_normals_radius`` must take the
+    compact kernel at a cap of 16 and the grid search (plain tensor code,
+    no kernel) at its default cap of 32."""
+    from cilantro_tpu_torch.core.containers import compact
+    from cilantro_tpu_torch.neighbors.bruteforce import knn
+
+    cloud = compact(cloud0)
+    q = cloud.points
+    rows = {  # label: (run, the compact kernel must launch)
+        "knn_k10_exclude_self": (lambda: knn(q, q, 10, exclude_self=True), True),
+        "radius_search_pruned_1cm_cap10_exclude_self":
+            (lambda: fk.radius_search_pruned(q, q, 0.01, 10, exclude_self=True), True),
+        "with_normals_radius_1cm_cap16": (lambda: cloud.with_normals_radius(0.01, max_neighbors=16), True),
+        "with_normals_radius_1cm_cap32_grid": (lambda: cloud.with_normals_radius(0.01), False),
+    }
+    for label, (run, on_kernel) in rows.items():
+        run()  # warm-up
+        torch.cuda.synchronize()
+        fk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with compact_calls(fk) as calls:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        launches = dict(fk.launch_counts)
+        if on_kernel and launches["knn_compact"] == 0:
+            raise AssertionError(f"{label} did not run the compact kernel: {launches}")
+        if not on_kernel and sum(launches.values()):
+            raise AssertionError(f"{label} should take the grid search, launched {launches}")
+        try:
+            prof = profile_once(run, ms)
+            prof = {key: prof[key] for key in ("device_kernel_ms", "device_idle_share") if key in prof} or prof
+        except Exception as e:  # informational: report and go on
+            prof = {"device_busy": "not measured", "error": f"{type(e).__name__}: {e}"}
+        emit(phase="bench_neighbour_row", row=label, points=int(q.shape[0]), launches=launches,
+             **round_stats(calls), host_ms=ms, peak_device_mib_above_start=peak_mib, **prof, card=card)
+
+
+def knn_kernel_checks(fk, nn, first_round, down):
+    """Phase 18: each kNN kernel against its plain version on the card, bit
+    for bit, timed as in phase 2 beside its arithmetic bound: the compact
+    kernel at phase 14's first-round pair list (k = 12, plain and with the
+    diagonal excluded), the compact wrapper with a budget one short of the
+    survivors of 16 query tiles (the full-kernel fallback), the full kernel
+    at phase 16's shape and at a 4096 × 4096 random cloud with k = 1, 12
+    and 65, beside ``torch.cdist`` + ``topk`` as a two-call yardstick."""
+    out = {}
+
+    def record(name, shape, kernel, plain, pairs, nbytes, k, library=None, plain_syncs=False, **extra):
+        k_out, p_out = kernel(), plain()
+        torch.cuda.synchronize()
+        assert_same_bits(name, k_out, p_out)
+        # The nn1 count; the insertions of the keys that enter come on top.
+        bound_ms, bound_by = nn1_bound(pairs, nbytes)
+        entry = dict(
+            name=name, route="cuda", source="cilantro_tpu_torch/csrc/knn_kernels.cu",
+            replaces=REPLACES[name], max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)),
+            ms=device_ms(kernel), plain_ms=host_ms(plain) if plain_syncs else device_ms(plain),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None if library is None else device_ms(library), pairs=pairs, bytes=nbytes,
+        )
+        if plain_syncs:
+            entry["plain_timer"] = "host clock, median of 3 (the plain version reads its pair list back)"
+        emit(phase="knn_kernel_vs_plain", tolerance="bit-exact", shape=shape, k=k, **entry, **extra)
+        return entry
+
+    # Compact: the first round of the main path's kNN normals.
+    qp, kp, mask = first_round["qp"], first_round["kp"], first_round["mask"]
+    tq, tm, budget = first_round["tile_q"], first_round["tile_m"], first_round["budget"]
+    qt, kt, fl = nn._compact_list(mask, budget)
+    survivors = first_round["survivors"]
+    io_bytes = (qp.numel() + kp.numel()) * 4 + 3 * 4 * budget + qp.shape[0] * KNN_K * 8
+    for diag in (False, True):
+        entry = record(
+            "knn_compact",
+            f"{qp.shape[0]}x{kp.shape[0]}, tiles {tq}x{tm}, {survivors} of {mask.numel()} pairs",
+            lambda: fk.knn_compact_rows(qp, kp, qt, kt, fl, k=KNN_K, tile_q=tq, tile_m=tm, exclude_diag=diag),
+            lambda: fk.knn_compact_rows_plain(qp, kp, qt, kt, fl, KNN_K, tq, tm, diag),
+            survivors * tq * tm, io_bytes, KNN_K, plain_syncs=True, exclude_diag=diag, budget=budget,
+            library_is="none: no PyTorch call searches a list of tile pairs",
+        )
+        out.setdefault("knn_compact", entry)
+
+    # The compact wrapper's fallback on 16 query tiles: the full kernel.
+    sub_mask, sub_qp = mask[:16], qp[: 16 * tq]
+    n = int(sub_mask.sum())
+    before = dict(fk.launch_counts)
+    got = fk._knn_compact(sub_qp, kp, sub_mask, k=KNN_K, budget=n - 1, tile_q=tq, tile_m=tm)
+    torch.cuda.synchronize()
+    routed = {name: fk.launch_counts[name] - before[name] for name in before}
+    if routed != {"knn_full": 1, "knn_compact": 0}:
+        raise AssertionError(f"the over-budget compact call launched {routed}")
+    assert_same_bits("knn_compact fallback", got, fk.knn_full_rows_plain(sub_qp, kp, KNN_K))
+    emit(phase="knn_compact_fallback", query_rows=int(sub_qp.shape[0]), budget=n - 1, survivors=n,
+         launches=routed, tolerance="bit-exact", max_abs_err=0.0)
+
+    # Full: phase 16's shape, then a random 4096-point cloud at three k.
+    rng = np.random.default_rng(2)
+    rand = torch.from_numpy(rng.uniform(-1, 1, (4096, 3)).astype(np.float32)).cuda()
+    cases = [("phase 16", down.points, down.valid, KNN_K)]
+    cases += [("random 4096", rand, None, kk) for kk in (1, 12, 65)]
+    for label, pts, valid, kk in cases:
+        qp_f, kp_f = fk._augment(pts, pts, valid, 512, 2048)  # as knn_fused pads them
+        p = pts if valid is None else pts[valid]
+        entry = record(
+            "knn_full", f"{label}: {qp_f.shape[0]}x{kp_f.shape[0]}",
+            lambda: fk.knn_full_rows(qp_f, kp_f, k=kk), lambda: fk.knn_full_rows_plain(qp_f, kp_f, kk),
+            pts.shape[0] ** 2, (qp_f.numel() + kp_f.numel()) * 4 + qp_f.shape[0] * kk * 8, kk,
+            library=lambda: torch.topk(torch.cdist(p, p), kk, dim=1, largest=False),
+            library_is="torch.cdist + topk over the same points (two calls, a yardstick; the port never calls it)",
+        )
+        out.setdefault("knn_full", entry)
+    return out
+
+
+def knn_normals_card_vs_cpu(fk, k_small):
+    """Phase 19: ``with_normals_knn(k=12)`` on a 160×120 frame on the card
+    (the pruned kernel path) and on the CPU (the tiled scan, the
+    counterpart of what JAX runs on a CPU): |cos| ≥ 0.999 on at least 99%
+    of the points valid in both (the rest: near-tied neighbours swapped)."""
+    from cilantro_tpu_torch.slam.driver import synthetic_sequence
+
+    depths, _ = synthetic_sequence(1, 120, 160, k_small, seed=0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fk.reset_launch_counts()
+        out[dev] = (frame_cloud(depths[0], k_small, torch.device(dev)).with_normals_knn(KNN_K),
+                    dict(fk.launch_counts))
+    (g, l_g), (c, l_c) = out["cuda"], out["cpu"]
+    if sum(l_c.values()) or l_g["knn_compact"] == 0:
+        raise AssertionError(f"launches: card {l_g}, CPU {l_c}")
+    both = g.valid.cpu() & c.valid
+    cos = torch.abs(torch.sum(g.normals.cpu()[both] * c.normals[both], dim=-1))
+    share = float((cos >= 0.999).float().mean())
+    emit(phase="knn_normals_card_vs_cpu", height=120, width=160, card_launches=l_g,
+         compared=int(both.sum()), share_abs_cos_ge_0_999=share, min_abs_cos=float(cos.min()),
+         valid_card=int(g.valid.sum()), valid_cpu=int(c.valid.sum()))
+    if not share >= 0.99:
+        raise AssertionError(f"card and CPU kNN normals agree on {share} of the points, want >= 0.99")
+
+
+def probe_kernel_check():
+    """Phase 20: ``scale2`` (the wide-row probe's copy kernel) once on the
+    (CAP/8, 128) pool view, bit for bit against ``2.0 * x``, timed beside
+    ``torch.mul`` and its byte bound (each element read and written once)."""
+    from cilantro_tpu_torch.tools import wide_row_probe as probe
+
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((POOL_CAPACITY // 8, 128))
+                         .astype(np.float32)).cuda()
+    probe.reset_launch_counts()
+    got = probe.scale2(x)
+    torch.cuda.synchronize()
+    launches = probe.launch_counts["scale2"]
+    want = probe.scale2_plain(x)
+    assert_same_bits("scale2", [got], [want])
+    nbytes = 2 * x.numel() * 4
+    entry = dict(
+        name="scale2", route="cuda", source="cilantro_tpu_torch/csrc/probe_kernels.cu",
+        replaces=REPLACES["scale2"], launches=launches, max_abs_err=max_abs_err(got, want),
+        ms=device_ms(lambda: probe.scale2(x)), plain_ms=device_ms(lambda: probe.scale2_plain(x)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=device_ms(lambda: torch.mul(x, 2.0)), bytes=nbytes,
+        path="wide_row_probe copy, one launch",
+    )
+    emit(phase="probe_kernel_vs_plain", tolerance="bit-exact", shape=list(x.shape),
+         library_is="torch.mul(x, 2.0) (a yardstick)", **entry)
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -979,9 +1375,33 @@ def main() -> int:
         emit(phase="pool_driver_frames", error=f"{type(e).__name__}: {e}")
     pool_card_vs_cpu(cg, depths, k, pool_met.poses)
 
+    # 14-19. The neighbour engines and kNN normals with the two kNN kernels.
+    from cilantro_tpu_torch.neighbors import fused_knn
+
+    cloud0 = frame_cloud(depths[0], k, dev)
+    _, ref_normals, ref_valid = pair[1]
+    _, knn_launches, first_round = knn_normals_main_path(fused_knn, cloud0, ref_normals, ref_valid, card)
+    try:
+        eigh_yardstick(cloud0, card)
+    except Exception as e:  # informational phase: report and go on
+        emit(phase="eigh_yardstick", error=f"{type(e).__name__}: {e}")
+    knn_normals_registration(fused_knn, fused_nn, icp_mod, pair[0], cloud0, rel)
+    down, full_launches = knn_full_path(fused_knn, cloud0)
+    bench_neighbour_rows(fused_knn, cloud0, card)
+    knn = knn_kernel_checks(fused_knn, fused_nn, first_round, down)
+    knn["knn_compact"].update(launches=knn_launches["knn_compact"],
+                              path="with_normals_knn(k=12), 640x480 frame")
+    knn["knn_full"].update(launches=full_launches["knn_full"],
+                           path="with_normals_knn(k=12), frame grid-downsampled below 8,192 points")
+    knn_normals_card_vs_cpu(fused_knn, CameraIntrinsics.make(131.25, 131.25, 79.5, 59.5))
+
+    # 20. The wide-row probe's kernel.
+    probe = probe_kernel_check()
+
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]
     kernels.append(gather_entry)
+    kernels += [knn["knn_full"], knn["knn_compact"], probe]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

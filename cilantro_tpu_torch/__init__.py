@@ -12,12 +12,18 @@ Every TPU (Pallas) kernel on a ported path is a CUDA C++ kernel under
 The wrapper runs the plain version only for CPU tensors; for a CUDA tensor
 it launches the kernel or raises.
 
-Ported so far (splat fusion, rigid ICP, pool fusion):
+Ported so far (splat fusion, rigid ICP, pool fusion, neighbour engines
+and normals):
 
 core            ``Transform`` and its ops, ``CameraIntrinsics``, depth →
-                points (+normals), the z-buffer, ``PointCloud``, grids,
-                the wide-row gather kernel (``core/coalesced.py``)
-neighbors       exact 1-NN and the nn1 kernels (``neighbors/fused_nn.py``)
+                points (+normals), the z-buffer, ``PointCloud`` (with
+                kNN / radius normals), grids, covariance and MCD,
+                normal estimation, the wide-row gather kernel
+                (``core/coalesced.py``)
+neighbors       exact 1-NN and the nn1 kernels (``neighbors/fused_nn.py``),
+                exact kNN and radius search with the two kNN kernels
+                (``neighbors/fused_knn.py``), the grid radius search and
+                the ``knn_search`` / ``radius_search`` API
 correspondence  nearest-neighbour and projective correspondences
 registration    the 3-D estimators, ``icp``, ``icp_multires``,
                 ``icp_projective``
@@ -27,6 +33,7 @@ slam            the splat kernels (``slam/splat.py``), splat fusion
                 ``ate_rmse`` and ``synthetic_sequence``
                 (``slam/driver.py``)
 interop         build port state from the JAX package's leaves (numpy)
+tools           the wide-row probe and its ``scale2`` kernel
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Masked fixed-capacity point clouds (port of
-``cilantro_tpu/core/containers.py``, the methods that need no kNN and no
-file I/O; normals estimation and PLY input/output wait for later slices).
+``cilantro_tpu/core/containers.py``, all but PLY input/output, which waits
+for the utilities slice).
 
 A :class:`PointCloud` holds row-major ``(N, D)`` tensors and a boolean
 ``valid`` mask: removal clears mask bits, :func:`append` concatenates
@@ -90,6 +90,35 @@ class PointCloud:
         from .grid import grid_downsample
 
         return grid_downsample(self, bin_size, min_points_in_bin)
+
+    def _view_point(self, view_point) -> torch.Tensor:
+        if view_point is None:
+            return torch.zeros(self.dim, dtype=self.points.dtype, device=self.points.device)
+        return torch.as_tensor(view_point, dtype=self.points.dtype, device=self.points.device)
+
+    def with_normals_knn(self, k: int = 12, view_point=None) -> "PointCloud":
+        """Normals from each point's k nearest neighbours, turned toward
+        ``view_point`` (the origin by default, as the reference); points
+        without a normal drop out of ``valid``."""
+        from .normals import estimate_normals_knn
+
+        normals, _, ok = estimate_normals_knn(
+            self.points, k, valid=self.valid, view_point=self._view_point(view_point)
+        )
+        return dataclasses.replace(self, normals=normals, valid=self.valid_mask() & ok)
+
+    def with_normals_radius(
+        self, radius: float, max_neighbors: int = 32, view_point=None
+    ) -> "PointCloud":
+        """Normals from the at most ``max_neighbors`` closest points within
+        ``radius``, turned toward ``view_point`` (the origin by default)."""
+        from .normals import estimate_normals_radius
+
+        normals, _, ok = estimate_normals_radius(
+            self.points, radius, max_neighbors, valid=self.valid,
+            view_point=self._view_point(view_point),
+        )
+        return dataclasses.replace(self, normals=normals, valid=self.valid_mask() & ok)
 
 
 def from_numpy(

@@ -15,6 +15,7 @@ from . import resolve_device
 from .core.containers import PointCloud
 from .core.rgbd import CameraIntrinsics
 from .core.transforms import Transform
+from .neighbors.api import Neighborhoods
 from .slam.fusion import FusionMap
 from .slam.splat_fusion import SplatMap
 
@@ -46,21 +47,35 @@ def intrinsics_from_numpy(fx, fy, cx, cy) -> CameraIntrinsics:
     )
 
 
+def _leaf(a, dtype, dev):
+    """A tensor copy of one leaf on ``dev`` (None stays None)."""
+    return None if a is None else torch.as_tensor(np.array(a, dtype), device=dev)
+
+
 def point_cloud_from_numpy(
     points, normals=None, colors=None, valid=None, device="cuda"
 ) -> PointCloud:
     """A port cloud from the leaves of a JAX ``PointCloud`` (None where the
     JAX cloud has None)."""
     dev = resolve_device(device)
-
-    def leaf(a, dtype):
-        return None if a is None else torch.as_tensor(np.asarray(a, dtype), device=dev)
-
     return PointCloud(
-        points=leaf(points, np.float32),
-        normals=leaf(normals, np.float32),
-        colors=leaf(colors, np.float32),
-        valid=leaf(valid, bool),
+        points=_leaf(points, np.float32, dev),
+        normals=_leaf(normals, np.float32, dev),
+        colors=_leaf(colors, np.float32, dev),
+        valid=_leaf(valid, bool, dev),
+    )
+
+
+def neighborhoods_from_numpy(
+    indices, distances, mask, overflowed=None, device="cuda"
+) -> Neighborhoods:
+    """Port ``Neighborhoods`` from the leaves of a JAX ``Neighborhoods``."""
+    dev = resolve_device(device)
+    return Neighborhoods(
+        indices=_leaf(indices, np.int32, dev),
+        distances=_leaf(distances, np.float32, dev),
+        mask=_leaf(mask, bool, dev),
+        overflowed=_leaf(overflowed, bool, dev),
     )
 
 

@@ -1,0 +1,504 @@
+"""Exact k nearest neighbours over augmented coordinates, with Morton-tile
+pruning (port of the kNN and radius half of
+``cilantro_tpu/neighbors/pallas_nn.py``; the augmentation, sorts, tile boxes
+and pair lists come from :mod:`.fused_nn`).
+
+Squared distances are the 8-term dot products of augmented rows that
+:mod:`.fused_nn` describes. Two CUDA C++ kernels (``csrc/knn_kernels.cu``,
+built for ``sm_90a`` at first CUDA use) carry the search, each with a plain
+PyTorch version beside it; a wrapper runs the plain version only when its
+tensors lie on the CPU, and for CUDA tensors launches the kernel or raises.
+Every launch adds one to ``launch_counts[<name>]``.
+
+- :func:`knn_full_rows` ("knn_full") replaces ``_knn_kernel`` /
+  ``_knn_pallas_full`` (``pallas_nn.py:701,854``): every query against
+  every key.
+- :func:`knn_compact_rows` ("knn_compact") replaces ``_knn_kernel_compact``
+  / ``_knn_pallas_compact`` (``pallas_nn.py:726,763``): the (query tile,
+  key chunk) pairs of a compacted list.
+
+Contract of both, per query row: the k smallest ``(Σ_j q̂[j]·k̂[m, j], m)``
+pairs over the visited keys ``m`` in lexicographic order, ascending, the sum
+taken left to right in float32 (no FMA, no TF32), starting from
+``(INVALID_DIST, 0)`` in every slot. A key enters only if its sum is
+strictly below the current k-th (so a NaN sum, and a masked key's 3e38,
+never enter); with ``exclude_diag`` the key whose position equals the
+query's row is skipped. Kernel and plain version agree bit for bit. The TPU
+kernels keep the same order and tie rule (``_fold_block_topk`` extracts a
+chunk's first minimum and inserts it after every slot ``<=`` it); their MXU
+product sums in another order, so distances agree with JAX to float32
+rounding and near-tied neighbours may swap.
+
+What bounds the kernels: arithmetic, as for the nn1 kernels (10 float32
+operations per visited pair of 3-D points at 67 TFLOP/s on an H100 SXM),
+with the top-k insertion on top for the keys that enter. See the source for
+the design.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import native
+from .bruteforce import INVALID_DIST, _merge_topk, _valid_or_all
+from .fused_nn import (
+    _PLAIN_BLOCK,
+    _aug_dist,
+    _augment,
+    _augment_keys,
+    _augment_queries,
+    _check_cuda,
+    _check_rows,
+    _inverse_perm,
+    _live_pairs,
+    _morton_sort,
+    _pair_list,
+    _sq_norm,
+    _tile_aabbs,
+    _unpermute_key_indices,
+)
+from .gridhash import _aabb_dist2
+
+launch_counts: Dict[str, int] = {
+    "knn_full": 0,
+    "knn_compact": 0,
+}
+
+_BIG = 3e38
+# Radius-doubling rounds of ``knn_pruned`` before its full-kernel pass.
+_MAX_ROUNDS = 6
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the kernels' arithmetic as PyTorch ops.
+# ---------------------------------------------------------------------------
+
+
+def _init_slots(rows: int, k: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (
+        torch.full((rows, k), INVALID_DIST, dtype=torch.float32, device=device),
+        torch.zeros((rows, k), dtype=torch.int32, device=device),
+    )
+
+
+def _fold_k(bd, bi, dist, col0, rows=None):
+    """Fold a ``(R, C)`` block of sums whose columns are key positions
+    ``col0 + c`` (all above those already in ``(bd, bi)``) into the
+    ascending ``(R, k)`` slots: the k lexicographically smallest ``(sum,
+    position)`` pairs. A sum not below ``INVALID_DIST`` (NaN included) and,
+    where ``rows`` (the global query rows) is given, the diagonal never
+    enter; :func:`.bruteforce._merge_topk` keeps earlier positions first
+    among equal sums."""
+    cols = col0 + torch.arange(dist.shape[1], dtype=torch.int32, device=dist.device)
+    out = ~(dist < INVALID_DIST)
+    if rows is not None:
+        out |= cols[None, :] == rows[:, None]
+    # The k slots sort before every excluded (inf) candidate.
+    return _merge_topk(bd, bi, torch.where(out, float("inf"), dist), cols)
+
+
+def knn_full_rows_plain(qp: torch.Tensor, kp: torch.Tensor, k: int, exclude_diag: bool = False):
+    """Plain version of :func:`knn_full_rows`."""
+    bd, bi = _init_slots(qp.shape[0], k, qp.device)
+    step_q = max(1, min(qp.shape[0], _PLAIN_BLOCK // max(kp.shape[0], 1)))
+    step_m = max(1, min(kp.shape[0], _PLAIN_BLOCK // step_q))
+    for q0 in range(0, qp.shape[0], step_q):
+        q = qp[q0 : q0 + step_q]
+        rows = None
+        if exclude_diag:
+            rows = torch.arange(q0, q0 + q.shape[0], dtype=torch.int32, device=qp.device)
+        d, i = bd[q0 : q0 + step_q], bi[q0 : q0 + step_q]
+        for m0 in range(0, kp.shape[0], step_m):
+            d, i = _fold_k(d, i, _aug_dist(q, kp[m0 : m0 + step_m]), m0, rows)
+        bd[q0 : q0 + step_q], bi[q0 : q0 + step_q] = d, i
+    return bd, bi
+
+
+def knn_compact_rows_plain(qp, kp, qt, kt, flags, k, tile_q, tile_m, exclude_diag=False):
+    """Plain version of :func:`knn_compact_rows`: key chunks in ascending
+    order, each folded into the query tiles whose live list entries name
+    it, so only the surviving pairs are computed."""
+    n_qt, n_mt = qp.shape[0] // tile_q, kp.shape[0] // tile_m
+    live = (flags & 2) != 0
+    mask = np.zeros((n_qt, n_mt), bool)
+    mask[qt[live].cpu().numpy(), kt[live].cpu().numpy()] = True
+    bd, bi = _init_slots(qp.shape[0], k, qp.device)
+    group = max(1, _PLAIN_BLOCK // (tile_q * tile_m))
+    offs = torch.arange(tile_q, device=qp.device)
+    for c in range(n_mt):
+        tiles = np.flatnonzero(mask[:, c])
+        keys = kp[c * tile_m : (c + 1) * tile_m]
+        for g0 in range(0, len(tiles), group):
+            sel = torch.as_tensor(tiles[g0 : g0 + group], device=qp.device)
+            rows = (sel[:, None] * tile_q + offs).reshape(-1)
+            bd[rows], bi[rows] = _fold_k(
+                bd[rows], bi[rows], _aug_dist(qp[rows], keys), c * tile_m,
+                rows.to(torch.int32) if exclude_diag else None,
+            )
+    return bd, bi
+
+
+# ---------------------------------------------------------------------------
+# Kernel library and the two kernel wrappers.
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "knn_full_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "knn_compact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+}
+
+
+@functools.cache
+def _kernels() -> ctypes.CDLL:
+    lib = native.load("knn_kernels")
+    for fn, argtypes in _SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, *args) -> None:
+    err = getattr(_kernels(), f"{name}_launch")(
+        *args, torch.cuda.current_stream().cuda_stream
+    )
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    launch_counts[name] += 1
+
+
+def _check_k(name, qp, k) -> None:
+    if k < 1:
+        raise ValueError(f"{name}: k={k} must be at least 1")
+    if qp.shape[0] * k >= 2**31:
+        raise ValueError(f"{name}: {qp.shape[0]} rows x k={k} reach 2^31 slots")
+
+
+def _outputs(qp, k):
+    return (
+        torch.empty((qp.shape[0], k), dtype=torch.float32, device=qp.device),
+        torch.empty((qp.shape[0], k), dtype=torch.int32, device=qp.device),
+    )
+
+
+def knn_full_rows(
+    qp: torch.Tensor, kp: torch.Tensor, *, k: int, exclude_diag: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k nearest keys of every augmented query row over all key rows:
+    ``(dist (Qp, k) f32, idx (Qp, k) i32)``, raw (not clamped or gated)."""
+    name = "knn_full"
+    _check_rows(name, qp, kp, 1, 1)
+    _check_k(name, qp, k)
+    if native.on_cpu(name, qp, kp):
+        return knn_full_rows_plain(qp, kp, k, exclude_diag)
+    _check_cuda(name, qp.shape[0], ("qp", qp), ("kp", kp))
+    dist, idx = _outputs(qp, k)
+    _launch(
+        name, qp.data_ptr(), kp.data_ptr(), qp.shape[0], kp.shape[0], k,
+        int(exclude_diag), dist.data_ptr(), idx.data_ptr(),
+    )
+    return dist, idx
+
+
+def knn_compact_rows(
+    qp: torch.Tensor,
+    kp: torch.Tensor,
+    qt: torch.Tensor,
+    kt: torch.Tensor,
+    flags: torch.Tensor,
+    *,
+    k: int,
+    tile_q: int,
+    tile_m: int,
+    exclude_diag: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`knn_full_rows` over a compacted pair list: entry s names query
+    tile ``qt[s]`` and key chunk ``kt[s]``, and counts if ``flags[s] & 2``.
+    The list is sorted by ``qt`` (as ``fused_nn._compact_list`` builds it);
+    a query tile that no live entry names keeps ``(INVALID_DIST, 0)``."""
+    name = "knn_compact"
+    _check_rows(name, qp, kp, tile_q, tile_m)
+    budget = qt.shape[0]
+    for what, t in (("qt", qt), ("kt", kt), ("flags", flags)):
+        native.check(name, t, what, (torch.int32,), (budget,))
+    _check_k(name, qp, k)
+    if native.on_cpu(name, qp, kp, qt, kt, flags):
+        return knn_compact_rows_plain(qp, kp, qt, kt, flags, k, tile_q, tile_m, exclude_diag)
+    _check_cuda(
+        name, tile_q, ("qp", qp), ("kp", kp), ("qt", qt), ("kt", kt), ("flags", flags)
+    )
+    dist, idx = _outputs(qp, k)
+    _launch(
+        name, qp.data_ptr(), kp.data_ptr(), qt.data_ptr(), kt.data_ptr(),
+        flags.data_ptr(), budget, qp.shape[0], tile_q, tile_m, k, int(exclude_diag),
+        dist.data_ptr(), idx.data_ptr(),
+    )
+    return dist, idx
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's wrappers around its kernels.
+# ---------------------------------------------------------------------------
+
+
+def _knn_compact(
+    qp, kp, tile_mask, *, k: int, budget: int, tile_q: int, tile_m: int,
+    exclude_diag: bool = False, ids: Optional[torch.Tensor] = None,
+):
+    """Port of ``_knn_pallas_compact``: ``(dist (Qp, k), idx (Qp, k))``
+    through the compact kernel when at most ``budget`` tile pairs survive,
+    else through the full kernel (the JAX ``lax.cond`` becomes a host
+    branch on the survivor count). ``ids``: the mask's live pairs
+    (``fused_nn._live_pairs``) when the caller has read them back already;
+    otherwise this reads them (one sync)."""
+    if ids is None:
+        ids = _live_pairs(tile_mask)
+    if ids.shape[0] > budget:
+        return knn_full_rows(qp, kp, k=k, exclude_diag=exclude_diag)
+    lst = _pair_list(ids, tile_mask.shape[1], budget)
+    return knn_compact_rows(
+        qp, kp, *lst, k=k, tile_q=tile_q, tile_m=tile_m, exclude_diag=exclude_diag
+    )
+
+
+def _drop_self_slot(dist, idx, keep_k: int):
+    """Self-exclusion postlude of the radius search: from ``keep_k + 1``
+    ascending slots drop each query's first real self hit (or the last,
+    overflow-probe slot when there is none) and keep ``keep_k``. Returns
+    ``(dist, idx, any_self, last_slot_hit)``; the flags feed the exact
+    overflow flag."""
+    rows = torch.arange(dist.shape[0], dtype=idx.dtype, device=idx.device)
+    hit = dist < INVALID_DIST * 0.5
+    is_self = (idx == rows[:, None]) & hit
+    any_self = is_self.any(dim=1)
+    first_self = torch.argmax(is_self.to(torch.int32), dim=1)
+    drop = torch.where(any_self, first_self, keep_k)
+    # Output j reads slot j before the dropped one and slot j + 1 after it.
+    pos = torch.arange(keep_k, device=dist.device)[None, :]
+    sel = pos + (pos >= drop[:, None]).to(pos.dtype)
+    return dist.gather(1, sel), idx.gather(1, sel), any_self, hit[:, keep_k]
+
+
+def _pad_slots(dist, idx, k: int):
+    """Pad ``(Q, k_eff)`` results to ``k`` columns of ``(INVALID_DIST, 0)``."""
+    extra = k - dist.shape[1]
+    if extra <= 0:
+        return dist, idx
+    d_pad, i_pad = _init_slots(dist.shape[0], extra, dist.device)
+    return torch.cat([dist, d_pad], dim=1), torch.cat([idx, i_pad], dim=1)
+
+
+def knn_fused(
+    queries: torch.Tensor,
+    keys: torch.Tensor,
+    k: int,
+    *,
+    query_valid: Optional[torch.Tensor] = None,
+    key_valid: Optional[torch.Tensor] = None,
+    tile_q: int = 512,
+    tile_m: int = 2048,
+    exclude_self: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN through the full kernel (port of ``knn_pallas``):
+    ``(dist² (Q, k), idx (Q, k) int32)``, ascending. ``exclude_self`` drops
+    the diagonal (queries and keys positionally one cloud). The tiles only
+    pad the operands, as JAX's do."""
+    qn, mn = queries.shape[0], keys.shape[0]
+    k_eff = min(k, mn)
+    qp, kp = _augment(queries, keys, key_valid, tile_q, tile_m)
+    dist, idx = knn_full_rows(qp, kp, k=k_eff, exclude_diag=exclude_self)
+    dist = torch.clamp(dist[:qn], min=0.0)
+    dist = torch.where(dist >= INVALID_DIST * 0.5, INVALID_DIST, dist)
+    idx = idx[:qn]
+    if query_valid is not None:
+        dist = torch.where(query_valid[:, None], dist, INVALID_DIST)
+    return _pad_slots(dist, idx, k)
+
+
+def knn_pruned(
+    queries: torch.Tensor,
+    keys: torch.Tensor,
+    k: int,
+    *,
+    query_valid: Optional[torch.Tensor] = None,
+    key_valid: Optional[torch.Tensor] = None,
+    tile_q: int = 256,
+    tile_m: int = 1024,
+    exclude_self: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN by Morton-tile pruning with radius doubling (port of
+    ``knn_pruned``): each round runs the compact kernel over the tile pairs
+    within the current radius of the unresolved query tiles and resolves a
+    query when its k-th distance is within the radius, or when its tile's
+    pairs covered every occupied key chunk (fewer than k valid keys); the
+    radius doubles for the rest. The JAX ``while_loop`` is a host loop with
+    one read-back per round (the survivor list, whose emptiness says that
+    every query is resolved), at most ``_MAX_ROUNDS`` rounds, then a full
+    pass for whatever is still unresolved. With ``exclude_self`` both sides
+    share one Morton permutation (by ``query_valid | key_valid``), so the
+    sorted diagonal stays the self pairs."""
+    qn, mn = queries.shape[0], keys.shape[0]
+    if exclude_self and qn != mn:
+        raise ValueError(
+            "exclude_self requires queries and keys to be the same cloud "
+            f"(got {qn} queries vs {mn} keys)"
+        )
+    dev = queries.device
+    k_eff = min(k, mn)
+    qv = _valid_or_all(query_valid, qn, dev)
+    kv = _valid_or_all(key_valid, mn, dev)
+
+    kext_min = torch.where(kv[:, None], keys, _BIG).amin(dim=0)
+    kext_max = torch.where(kv[:, None], keys, -_BIG).amax(dim=0)
+    diag = torch.sqrt(_sq_norm((kext_max - kext_min)[None, :]))[0, 0]
+    # Surface-density guess: spacing ~ diag·sqrt(1/M) on a 2-manifold.
+    frac = torch.tensor(float(max(k_eff, 1)), device=dev) / torch.tensor(float(mn), device=dev)
+    r0 = torch.clamp(diag * torch.sqrt(frac), min=1e-6)
+
+    origin = torch.minimum(torch.where(qv[:, None], queries, _BIG).amin(dim=0), kext_min)
+    if exclude_self:
+        perm, _, _ = _morton_sort(queries, qv | kv, origin, r0)
+        qperm = kperm = perm
+        qs, ks = queries[perm.long()], keys[perm.long()]
+        qvs, kvs = qv[perm.long()], kv[perm.long()]
+    else:
+        qperm, qs, qvs = _morton_sort(queries, qv, origin, r0)
+        kperm, ks, kvs = _morton_sort(keys, kv, origin, r0)
+
+    qmin, qmax, q_occ = _tile_aabbs(qs, qvs, tile_q)
+    kmin, kmax, k_occ = _tile_aabbs(ks, kvs, tile_m)
+    aabb_d2 = _aabb_dist2(qmin, qmax, kmin, kmax)
+    qp = _augment_queries(qs, tile_q)
+    kp = _augment_keys(ks, kvs, tile_m)
+    n_qt, n_mt = qp.shape[0] // tile_q, kp.shape[0] // tile_m
+    qn_pad = qp.shape[0]
+    budget = n_qt * min(max(n_mt // 4, 8), max(n_mt, 1))
+    nearest = torch.argmin(torch.where(k_occ[None, :], aabb_d2, _BIG), dim=1)
+    tiles = torch.arange(n_qt, device=dev)
+
+    dist, idx = _init_slots(qn_pad, k_eff, dev)
+    resolved = torch.ones(qn_pad, dtype=torch.bool, device=dev)
+    resolved[:qn] = ~qvs  # invalid and padding rows are resolved
+    radius = r0
+    for _ in range(_MAX_ROUNDS):
+        r2 = radius * radius
+        tile_unres = (~resolved).reshape(n_qt, tile_q).any(dim=1) & q_occ
+        mask = (aabb_d2 <= r2) & tile_unres[:, None] & k_occ[None, :]
+        mask[tiles, nearest] |= tile_unres
+        ids = _live_pairs(mask)  # the round's read-back
+        if ids.shape[0] == 0:  # no unresolved query tile is left
+            break
+        d_new, i_new = _knn_compact(
+            qp, kp, mask, k=k_eff, budget=budget, tile_q=tile_q, tile_m=tile_m,
+            exclude_diag=exclude_self, ids=ids,
+        )
+        kth = d_new[:, k_eff - 1]
+        # A tile whose pairs covered every occupied chunk is exact whatever
+        # its k-th distance (fewer than k valid keys).
+        covered = ((mask | ~k_occ[None, :]).all(dim=1) & tile_unres).repeat_interleave(tile_q)
+        visited = tile_unres.repeat_interleave(tile_q)
+        if ids.shape[0] > budget:
+            # The full kernel ran: every answer is exact.
+            newly = ~resolved
+        else:
+            newly = ~resolved & visited & ((kth <= r2) | covered)
+        dist = torch.where(newly[:, None], d_new, dist)
+        idx = torch.where(newly[:, None], i_new, idx)
+        resolved = resolved | newly
+        radius = radius * 2.0
+    else:
+        if not bool(resolved.all()):
+            # Safety net after _MAX_ROUNDS under-guesses: one full pass.
+            d_f, i_f = knn_full_rows(qp, kp, k=k_eff, exclude_diag=exclude_self)
+            dist = torch.where(resolved[:, None], dist, d_f)
+            idx = torch.where(resolved[:, None], idx, i_f)
+
+    dist = torch.clamp(dist[:qn], min=0.0)
+    dist = torch.where(dist >= INVALID_DIST * 0.5, INVALID_DIST, dist)
+    idx = torch.where(
+        dist < INVALID_DIST * 0.5, _unpermute_key_indices(kperm, idx[:qn], mn), 0
+    )
+    dist = torch.where(qvs[:, None], dist, INVALID_DIST)
+    qinv = _inverse_perm(qperm).long()
+    return _pad_slots(dist[qinv], idx[qinv], k)
+
+
+def radius_search_pruned(
+    queries: torch.Tensor,
+    keys: torch.Tensor,
+    radius: float,
+    max_results: int,
+    *,
+    query_valid: Optional[torch.Tensor] = None,
+    key_valid: Optional[torch.Tensor] = None,
+    tile_q: int = 256,
+    tile_m: int = 1024,
+    exclude_self: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Radius-bounded NN through the compact kernel (port of
+    ``radius_search_pruned``): one pass with ``k = max_results + 1`` over
+    the tile pairs within ``radius``, then a radius gate. Returns ``(dist
+    (Q, R), idx (Q, R), overflowed (Q,))``; the kernel sees every key within
+    the radius, so the probe slot ``max_results`` landing inside it says
+    exactly that more than ``max_results`` keys are there. ``exclude_self``
+    searches one slot more and drops the self hit."""
+    if exclude_self:
+        dist, idx, over_inner = radius_search_pruned(
+            queries, keys, radius, max_results + 1, query_valid=query_valid,
+            key_valid=key_valid, tile_q=tile_q, tile_m=tile_m,
+        )
+        dist, idx, any_self, hit_last = _drop_self_slot(dist, idx, max_results)
+        # More than max_results + 1 inside, or exactly max_results + 1 of
+        # which none was the query itself.
+        return dist, idx, over_inner | (hit_last & ~any_self)
+
+    qn, mn = queries.shape[0], keys.shape[0]
+    dev = queries.device
+    k_eff = min(max_results + 1, mn)
+    qv = _valid_or_all(query_valid, qn, dev)
+    kv = _valid_or_all(key_valid, mn, dev)
+    r = torch.tensor(radius, dtype=torch.float32, device=dev)
+    r2 = r * r
+
+    origin = torch.minimum(
+        torch.where(qv[:, None], queries, _BIG).amin(dim=0),
+        torch.where(kv[:, None], keys, _BIG).amin(dim=0),
+    )
+    qperm, qs, qvs = _morton_sort(queries, qv, origin, r)
+    kperm, ks, kvs = _morton_sort(keys, kv, origin, r)
+    qmin, qmax, q_occ = _tile_aabbs(qs, qvs, tile_q)
+    kmin, kmax, k_occ = _tile_aabbs(ks, kvs, tile_m)
+    aabb_d2 = _aabb_dist2(qmin, qmax, kmin, kmax)
+    within = (aabb_d2 <= r2) & q_occ[:, None] & k_occ[None, :]
+    n_qt = within.shape[0]
+    nearest = torch.argmin(torch.where(k_occ[None, :], aabb_d2, _BIG), dim=1)
+    within[torch.arange(n_qt, device=dev), nearest] = True
+
+    qp = _augment_queries(qs, tile_q)
+    kp = _augment_keys(ks, kvs, tile_m)
+    n_mt = kp.shape[0] // tile_m
+    budget = n_qt * min(max(n_mt // 4, 8), max(n_mt, 1))
+    dist, idx = _knn_compact(
+        qp, kp, within, k=k_eff, budget=budget, tile_q=tile_q, tile_m=tile_m
+    )
+    dist = torch.clamp(dist[:qn], min=0.0)
+    idx = idx[:qn]
+    ok = (dist <= r2) & qvs[:, None]
+    over = ok[:, k_eff - 1] & (k_eff == max_results + 1)
+    dist = torch.where(ok, dist, INVALID_DIST)
+    idx = torch.where(ok, _unpermute_key_indices(kperm, idx, mn), 0)
+    qinv = _inverse_perm(qperm).long()
+    dist, idx = _pad_slots(dist[qinv][:, :max_results], idx[qinv][:, :max_results], max_results)
+    return dist, idx, over[qinv]
+

@@ -365,17 +365,28 @@ def _nn1_masked(qp, kp, tile_mask, *, tile_q: int = 1024, tile_m: int = 2048):
     return dist.reshape(-1, tile_q), idx.reshape(-1, tile_q)
 
 
+def _live_pairs(tile_mask: torch.Tensor) -> torch.Tensor:
+    """The row-major flat indices of ``tile_mask``'s nonzeros, int32. Reads
+    the survivor count back to the host (one sync)."""
+    return torch.nonzero(tile_mask.reshape(-1)).reshape(-1).to(torch.int32)
+
+
 def _compact_list(tile_mask: torch.Tensor, budget: int):
     """The compacted pair list of ``_nn1_pallas_compact``: the row-major
     nonzeros of ``tile_mask`` as ``(qt, kt, flags)`` of length ``budget``,
     padded by repeats of the last entry (flags: bit 0 first step of a query
     tile, bit 1 live, bit 2 last step). ``None`` when more than ``budget``
     pairs survive. Reads the survivor count back to the host (one sync)."""
-    n_mt = tile_mask.shape[1]
-    ids = torch.nonzero(tile_mask.reshape(-1)).reshape(-1).to(torch.int32)
-    count = ids.shape[0]
-    if count > budget:
+    ids = _live_pairs(tile_mask)
+    if ids.shape[0] > budget:
         return None
+    return _pair_list(ids, tile_mask.shape[1], budget)
+
+
+def _pair_list(ids: torch.Tensor, n_mt: int, budget: int):
+    """:func:`_compact_list` from the live pairs ``ids`` (at most
+    ``budget``) of a mask with ``n_mt`` columns."""
+    count = ids.shape[0]
     fill = ids[-1:] if count else torch.zeros(1, dtype=torch.int32, device=ids.device)
     ids = torch.cat([ids, fill.expand(budget - count)])
     live = torch.arange(budget, device=ids.device) < count

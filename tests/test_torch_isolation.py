@@ -73,3 +73,18 @@ def test_icp_entry_points_raise_without_cuda(monkeypatch):
     # icp runs where its tensors lie: a CPU call needs no card.
     fwd, args = entry(device="cpu")
     assert all(a.device.type == "cpu" for a in args)
+
+
+def test_neighbour_entry_points_raise_without_cuda(monkeypatch):
+    from cilantro_tpu_torch import interop
+    from cilantro_tpu_torch.core import containers
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    idx, dist, mask = np.zeros((4, 3), np.int32), np.zeros((4, 3), np.float32), np.ones((4, 3), bool)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.neighborhoods_from_numpy(idx, dist, mask)
+    nb = interop.neighborhoods_from_numpy(idx, dist, mask, device="cpu")
+    assert nb.indices.device.type == "cpu" and nb.overflowed is None
+    # Normals run where the cloud lies: a CPU cloud needs no card.
+    cloud = containers.from_numpy(np.random.default_rng(0).random((64, 3), np.float32), device="cpu")
+    assert cloud.with_normals_knn(8).normals.device.type == "cpu"

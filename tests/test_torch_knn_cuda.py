@@ -1,0 +1,192 @@
+"""Each CUDA kNN kernel (and the probe's ``scale2``) against its plain
+PyTorch version, on the card.
+
+Kernel and plain version sum the same 8 products in the same order and
+keep the same k lexicographically smallest ``(distance, position)`` pairs,
+so distances must agree bit for bit (compared as int32 views) and indices
+exactly, ties included. The tests skip on a machine without a CUDA device.
+This file imports neither JAX nor the JAX package, so it also runs where
+JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_knn_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cilantro_tpu_torch.neighbors import fused_knn as knn
+from cilantro_tpu_torch.neighbors import fused_nn as nn
+
+TQ, TM = 128, 256
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _same(kernel_out, plain_out):
+    (dk, ik), (dp, ip) = kernel_out, plain_out
+    assert torch.equal(dk.cpu().view(torch.int32), dp.cpu().view(torch.int32))
+    assert torch.equal(ik.cpu(), ip.cpu())
+
+
+def _launched(name, fn):
+    """Run ``fn`` and check that it launched kernel ``name`` once and no
+    other kNN kernel."""
+    before = dict(knn.launch_counts)
+    out = fn()
+    torch.cuda.synchronize()
+    after = dict(knn.launch_counts)
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == name) for k in after}
+    return out
+
+
+def _operands(dev, seed=0, qn=1000, mn=3000, same_cloud=False, invalid_queries=False):
+    """Augmented rows with exact copies (distance-0 ties), repeated keys
+    (index ties), 10% masked keys and, if asked, queries at 1e30 (their
+    ‖q‖² is inf: inf and NaN sums)."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-0.5, 0.5, (qn, 3)).astype(np.float32)
+    k = q.copy() if same_cloud else rng.uniform(-0.5, 0.5, (mn, 3)).astype(np.float32)
+    if not same_cloud:
+        k[:100] = q[:100]
+    k[500:700] = k[:200]
+    if invalid_queries:
+        q[rng.random(qn) < 0.2] = 1e30
+    kv = torch.from_numpy(rng.random(k.shape[0]) < 0.9)
+    qp, kp = nn._augment(torch.from_numpy(q), torch.from_numpy(k), kv, TQ, TM)
+    n_qt, n_mt = qp.shape[0] // TQ, kp.shape[0] // TM
+    mask = rng.random((n_qt, n_mt)) < 0.4
+    mask[np.arange(n_qt), rng.integers(0, n_mt, n_qt)] = True
+    mask[-1] = False  # a query tile that no live entry names
+    return qp.to(dev), kp.to(dev), torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 12, 65, 200])
+@pytest.mark.parametrize("diag", [False, True])
+def test_full_kernel_matches_plain(cuda, k, diag):
+    qp, kp, _ = _operands(cuda, seed=k, same_cloud=diag)
+    out = _launched("knn_full", lambda: knn.knn_full_rows(qp, kp, k=k, exclude_diag=diag))
+    _same(out, knn.knn_full_rows_plain(qp, kp, k, diag))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 12, 65, 200])
+@pytest.mark.parametrize("diag", [False, True])
+def test_compact_kernel_matches_plain(cuda, k, diag):
+    qp, kp, mask = _operands(cuda, seed=10 + k, same_cloud=diag)
+    qt, kt, fl = nn._compact_list(mask, mask.numel())
+    out = _launched(
+        "knn_compact",
+        lambda: knn.knn_compact_rows(qp, kp, qt, kt, fl, k=k, tile_q=TQ, tile_m=TM, exclude_diag=diag),
+    )
+    want = knn.knn_compact_rows_plain(qp, kp, qt, kt, fl, k, TQ, TM, diag)
+    _same(out, want)
+    # The unnamed query tile keeps the starting state.
+    assert bool((out[0][-TQ:] == 3.0e38).all()) and bool((out[1][-TQ:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_compact_wrapper_and_its_full_fallback(cuda):
+    qp, kp, mask = _operands(cuda, seed=3)
+    full_mask = torch.ones_like(mask)  # every pair: the full pass visits the same set
+    want = knn.knn_full_rows_plain(qp, kp, 12)
+    count = int(full_mask.sum())
+    for budget, route in ((count, "knn_compact"), (count - 1, "knn_full")):
+        out = _launched(
+            route,
+            lambda: knn._knn_compact(qp, kp, full_mask, k=12, budget=budget, tile_q=TQ, tile_m=TM),
+        )
+        _same(out, want)
+
+
+@pytest.mark.cuda
+def test_invalid_queries_match_plain(cuda):
+    qp, kp, mask = _operands(cuda, seed=4, invalid_queries=True)
+    _same(knn.knn_full_rows(qp, kp, k=12), knn.knn_full_rows_plain(qp, kp, 12))
+    qt, kt, fl = nn._compact_list(mask, mask.numel())
+    _same(
+        knn.knn_compact_rows(qp, kp, qt, kt, fl, k=12, tile_q=TQ, tile_m=TM),
+        knn.knn_compact_rows_plain(qp, kp, qt, kt, fl, 12, TQ, TM),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclude_self", [False, True])
+def test_pruned_paths_on_card_match_cpu(cuda, exclude_self):
+    """``knn_pruned`` and ``radius_search_pruned`` (sorts, rounds, budget
+    rule, kernels, gates, unpermute) give the CPU run's answer bit for bit."""
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(-0.3, 0.3, (5000, 3)).astype(np.float32)
+    valid = rng.random(5000) < 0.9
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        p, v = torch.from_numpy(pts).to(dev), torch.from_numpy(valid).to(dev)
+        d, i = knn.knn_pruned(p, p, 10, query_valid=v, key_valid=v, exclude_self=exclude_self,
+                              tile_q=TQ, tile_m=TM)
+        dr, ir, over = knn.radius_search_pruned(p, p, 0.03, 8, query_valid=v, key_valid=v,
+                                                exclude_self=exclude_self, tile_q=TQ, tile_m=TM)
+        outs.append((d, i, dr, ir, over))
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+def test_grid_radius_normals_on_card_match_cpu(cuda):
+    """``with_normals_radius`` at its default cap of 32 on a 9,000-point
+    sheet 1.5 m away: ``radius_search`` sends CUDA tensors to the grid
+    search (cap above 16), which launches no kNN kernel. The grid's
+    distance blocks sum in another order on the card, so near-ties at the
+    radius or the cap may swap a neighbour: validity equal on 99% of the
+    points and |cos| ≥ 0.999 on 99% of those valid in both, as for the kNN
+    normals."""
+    from cilantro_tpu_torch.core.containers import from_numpy
+
+    rng = np.random.default_rng(6)
+    xy = rng.uniform(-0.3, 0.3, (9000, 2))
+    z = 1.5 + 0.05 * np.sin(6 * xy[:, 0]) * np.cos(5 * xy[:, 1])
+    pts = np.column_stack([xy, z]).astype(np.float32)
+    before = dict(knn.launch_counts)
+    card = from_numpy(pts, device=cuda).with_normals_radius(0.02)
+    torch.cuda.synchronize()
+    assert dict(knn.launch_counts) == before
+    cpu = from_numpy(pts, device="cpu").with_normals_radius(0.02)
+    vg, vc = card.valid.cpu(), cpu.valid
+    assert float((vg == vc).float().mean()) >= 0.99 and int(vc.sum()) > 8000
+    both = vg & vc
+    cos = torch.abs(torch.sum(card.normals.cpu()[both] * cpu.normals[both], dim=-1))
+    assert float((cos >= 0.999).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_cannot_take(cuda):
+    qp, kp, mask = _operands(cuda)
+    with pytest.raises(ValueError, match="at least 1"):
+        knn.knn_full_rows(qp, kp, k=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        knn.knn_full_rows(qp, kp.t().contiguous().t(), k=4)
+    with pytest.raises(ValueError, match="several devices"):
+        knn.knn_full_rows(qp, kp.cpu(), k=4)
+    qt, kt, fl = nn._compact_list(mask, mask.numel())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        knn.knn_compact_rows(qp, kp, qt, kt, fl, k=4, tile_q=64, tile_m=TM)
+
+
+@pytest.mark.cuda
+def test_scale2_kernel_matches_plain(cuda):
+    from cilantro_tpu_torch.tools import wide_row_probe as probe
+
+    x = torch.randn((1000, 128), device=cuda)
+    x[0, :4] = torch.tensor([float("inf"), float("nan"), -0.0, 3e38])
+    before = probe.launch_counts["scale2"]
+    out = probe.scale2(x)
+    torch.cuda.synchronize()
+    assert probe.launch_counts["scale2"] == before + 1
+    assert torch.equal(out.view(torch.int32), probe.scale2_plain(x).view(torch.int32))
+    with pytest.raises(ValueError, match="divisible by 4"):
+        probe.scale2(torch.ones(6, device=cuda))
