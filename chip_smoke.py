@@ -63,12 +63,14 @@ in order; any failure raises and exits non-zero without the final line:
 14. kNN normals, the fourth main path: ``PointCloud.with_normals_knn(k=12)``
     on frame 0 back-projected by ``depth_to_points`` (307,200 rows, invalid
     pixels masked). The compact kNN kernel must launch; the radius-doubling
-    rounds, the surviving and visited tile pairs, host ms after a warm-up,
+    rounds, the surviving and visited tile pairs, host ms after a warm-up
+    (and the median of 5 more runs),
     a profiler window and the median |cos| to the depth image's normals
     (> 0.9); then (informational) the normals' Jacobi eigensolver on every
     neighbourhood beside cuSOLVER's ``torch.linalg.eigh``;
 15. frame 1 onto frame 0 with ``icp_multires`` and the bench levels, the
-    destination normals from ``with_normals_knn``: phase 6's bounds;
+    destination normals from ``with_normals_knn``: phase 6's bounds (host
+    ms of the counted run and the median of 3 more);
 16. ``with_normals_knn(k=12)`` on frame 0 grid-downsampled below 8,192
     points (Q·M < 2²⁶): the full kNN kernel must launch, the compact one
     not;
@@ -82,10 +84,15 @@ in order; any failure raises and exits non-zero without the final line:
 18. each kNN kernel against its plain version, bit for bit, timed as in
     phase 2 beside its arithmetic bound (10 operations per visited pair):
     the compact kernel at phase 14's first-round pair list (k = 12, with
-    and without the diagonal; its plain version syncs, so it is timed on
-    the host clock), the compact wrapper's full-kernel fallback on 16
-    query tiles, the full kernel at phase 16's shape and at 4096² random
-    points with k = 1, 12 and 65, beside ``torch.cdist`` + ``topk``;
+    and without the diagonal, then k = 1, the distance cost alone, and
+    k = 65; the whole wrapper, which builds its work on the card with no
+    host sync (checked), timed beside that work and the launch alone; its
+    plain version syncs, so it is timed on the host clock), the
+    compact wrapper's full-kernel fallback on 16 query tiles, the full
+    kernel at phase 16's shape and at 4096² random points with k = 1, 12
+    and 65, beside ``torch.cdist`` + ``topk``; each case with the kernel's
+    launch parameters (key splits, queries a thread, where the slots live)
+    and the kernel time the previous design took on the same case;
 19. ``with_normals_knn(k=12)`` on a 160×120 frame on the card (pruned
     kernel path) and on the CPU (the tiled scan): |cos| ≥ 0.999 on at
     least 99% of the points valid in both;
@@ -895,6 +902,17 @@ def pool_card_vs_cpu(cg, depths, k, card_poses):
 
 KNN_K = 12
 FULL_PATH_POINTS = 8192  # below it Q·M < 2^26: knn takes the full kernel
+# Kernel ms of the previous kNN kernels (one thread per query, per-key
+# insertion into shared-memory slots) on the phase 18 cases, NVIDIA H100
+# 80GB HBM3 at 700 W, PERF.md §6 table: (kernel, case, k, exclude_diag) -> ms.
+PREVIOUS_KNN_MS = {
+    ("knn_compact", "phase 14 list", 12, False): 13.354623794555664,
+    ("knn_compact", "phase 14 list", 12, True): 13.241791725158691,
+    ("knn_full", "phase 16", 12, False): 4.936319828033447,
+    ("knn_full", "random 4096", 1, False): 0.39635199308395386,
+    ("knn_full", "random 4096", 12, False): 1.0279359817504883,
+    ("knn_full", "random 4096", 65, False): 8.757375717163086,
+}
 
 
 def host_ms(fn, reps=3) -> float:
@@ -980,7 +998,7 @@ def knn_normals_main_path(fk, cloud, ref_normals, ref_valid, card):
     cos = median_abs_cos(out.normals, ref_normals, both)
     if not (cos > 0.9 and bool(torch.isfinite(out.normals).all())):
         raise AssertionError(f"kNN normals: median |cos| {cos} to the depth normals, want > 0.9")
-    ms_repeat = host_ms(lambda: cloud.with_normals_knn(KNN_K), reps=1)
+    ms_repeat = host_ms(lambda: cloud.with_normals_knn(KNN_K), reps=5)
     emit(phase="knn_normals_main_path", points=int(cloud.capacity), valid=int(cloud.valid.sum()),
          k=KNN_K, launches=launches, **round_stats(calls), ms=ms, ms_repeat=ms_repeat,
          normals_valid=int(out.valid.sum()), compared=int(both.sum()),
@@ -1023,21 +1041,25 @@ def knn_normals_registration(fk, nn, icp_mod, src, cloud0, rel):
     levels, the destination normals from ``with_normals_knn`` (computed
     inside the counted run): held to phase 6's bounds."""
     sp, _, sv = src
+
+    def run():
+        dst = cloud0.with_normals_knn(KNN_K)
+        return icp_mod.icp_multires(
+            sp, dst.points, dst_normals=dst.normals, src_valid=sv, dst_valid=dst.valid,
+            metric="combined", convergence_tol=1e-4, levels=BENCH_LEVELS,
+        )
+
     fk.reset_launch_counts()
     nn.reset_launch_counts()
     t0 = time.perf_counter()
-    dst = cloud0.with_normals_knn(KNN_K)
-    res = icp_mod.icp_multires(
-        sp, dst.points, dst_normals=dst.normals, src_valid=sv, dst_valid=dst.valid,
-        metric="combined", convergence_tol=1e-4, levels=BENCH_LEVELS,
-    )
+    res = run()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = {"knn_compact": fk.launch_counts["knn_compact"], "knn_full": fk.launch_counts["knn_full"],
                 "nn1_compact": nn.launch_counts["nn1_compact"]}
     dt, dr = gt_error(res.transform.linear, res.transform.translation, rel)
     emit(phase="knn_normals_registration", pipeline="with_normals_knn + icp_multires",
-         launches=launches, ms=ms, translation_error_m=dt, rotation_error_rad=dr,
+         launches=launches, ms=ms, ms_repeat=host_ms(run), translation_error_m=dt, rotation_error_rad=dr,
          iterations=int(res.iterations))
     if launches["knn_compact"] == 0 or launches["nn1_compact"] == 0:
         raise AssertionError(f"normals + registration launches {launches}")
@@ -1126,12 +1148,15 @@ def knn_kernel_checks(fk, nn, first_round, down):
     at phase 16's shape and at a 4096 × 4096 random cloud with k = 1, 12
     and 65, beside ``torch.cdist`` + ``topk`` as a two-call yardstick."""
     out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def record(name, shape, kernel, plain, pairs, nbytes, k, library=None, plain_syncs=False, **extra):
+    def record(name, case, shape, kernel, plain, pairs, nbytes, k, design, diag=False, library=None,
+               plain_syncs=False, **extra):
+        """``kernel``: the whole wrapper, checked bit for bit and timed."""
         k_out, p_out = kernel(), plain()
         torch.cuda.synchronize()
         assert_same_bits(name, k_out, p_out)
-        # The nn1 count; the insertions of the keys that enter come on top.
+        # The nn1 count; the merges of the keys that enter come on top.
         bound_ms, bound_by = nn1_bound(pairs, nbytes)
         entry = dict(
             name=name, route="cuda", source="cilantro_tpu_torch/csrc/knn_kernels.cu",
@@ -1142,7 +1167,10 @@ def knn_kernel_checks(fk, nn, first_round, down):
         )
         if plain_syncs:
             entry["plain_timer"] = "host clock, median of 3 (the plain version reads its pair list back)"
-        emit(phase="knn_kernel_vs_plain", tolerance="bit-exact", shape=shape, k=k, **entry, **extra)
+        before = PREVIOUS_KNN_MS.get((name, case, k, diag))
+        emit(phase="knn_kernel_vs_plain", tolerance="bit-exact", case=case, shape=shape, k=k,
+             exclude_diag=diag, **entry, bound_share=bound_ms / entry["ms"], design=design,
+             previous_design_ms=before if before is not None else "not measured", **extra)
         return entry
 
     # Compact: the first round of the main path's kNN normals.
@@ -1150,14 +1178,43 @@ def knn_kernel_checks(fk, nn, first_round, down):
     tq, tm, budget = first_round["tile_q"], first_round["tile_m"], first_round["budget"]
     qt, kt, fl = nn._compact_list(mask, budget)
     survivors = first_round["survivors"]
-    io_bytes = (qp.numel() + kp.numel()) * 4 + 3 * 4 * budget + qp.shape[0] * KNN_K * 8
-    for diag in (False, True):
+    n_qt = qp.shape[0] // tq
+
+    def prep():
+        return fk._compact_items(qt, kt, fl, n_qt, tq, tm, survivors)
+
+    work = prep()
+    items = work[2]
+    work_stats = dict(items=int(items.shape[0]), real_items=int((items[:, 0] >= 0).sum()),
+                      split_items=int((items[:, 3] > 1).sum()), split_items_bound=work[4])
+    prep_ms = device_ms(prep)
+    for kk, diag in ((KNN_K, False), (KNN_K, True), (1, False), (65, False)):
+        io_bytes = (qp.numel() + kp.numel()) * 4 + 3 * 4 * budget + qp.shape[0] * kk * 8
+
+        def wrapper():
+            return fk.knn_compact_rows(qp, kp, qt, kt, fl, k=kk, tile_q=tq, tile_m=tm, exclude_diag=diag,
+                                       max_live=survivors)
+
+        # The wrapper builds its work on the card: no host sync.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            wrapper()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         entry = record(
-            "knn_compact",
+            "knn_compact", "phase 14 list",
             f"{qp.shape[0]}x{kp.shape[0]}, tiles {tq}x{tm}, {survivors} of {mask.numel()} pairs",
-            lambda: fk.knn_compact_rows(qp, kp, qt, kt, fl, k=KNN_K, tile_q=tq, tile_m=tm, exclude_diag=diag),
-            lambda: fk.knn_compact_rows_plain(qp, kp, qt, kt, fl, KNN_K, tq, tm, diag),
-            survivors * tq * tm, io_bytes, KNN_K, plain_syncs=True, exclude_diag=diag, budget=budget,
+            wrapper, lambda: fk.knn_compact_rows_plain(qp, kp, qt, kt, fl, kk, tq, tm, diag),
+            survivors * tq * tm, io_bytes, kk,
+            fk.kernel_design("knn_compact", qp.shape[0], kp.shape[0], kk, tile_q=tq, tile_m=tm, sms=sms),
+            diag=diag, plain_syncs=True, budget=budget,
+            prep_ms=prep_ms,
+            launch_ms=device_ms(lambda: fk._compact_launch(qp, kp, work, k=kk, tile_q=tq, tile_m=tm,
+                                                           exclude_diag=diag)),
+            timers="ms: the whole wrapper (work built on the card, then the launch); prep_ms: the "
+                   "work alone; launch_ms: the launch with its scratch alone",
+            partial_list_mib=work[4] * work[3] * kk * 8 / 2**20, **work_stats,
             library_is="none: no PyTorch call searches a list of tile pairs",
         )
         out.setdefault("knn_compact", entry)
@@ -1184,9 +1241,10 @@ def knn_kernel_checks(fk, nn, first_round, down):
         qp_f, kp_f = fk._augment(pts, pts, valid, 512, 2048)  # as knn_fused pads them
         p = pts if valid is None else pts[valid]
         entry = record(
-            "knn_full", f"{label}: {qp_f.shape[0]}x{kp_f.shape[0]}",
+            "knn_full", label, f"{label}: {qp_f.shape[0]}x{kp_f.shape[0]}",
             lambda: fk.knn_full_rows(qp_f, kp_f, k=kk), lambda: fk.knn_full_rows_plain(qp_f, kp_f, kk),
             pts.shape[0] ** 2, (qp_f.numel() + kp_f.numel()) * 4 + qp_f.shape[0] * kk * 8, kk,
+            fk.kernel_design("knn_full", qp_f.shape[0], kp_f.shape[0], kk, sms=sms),
             library=lambda: torch.topk(torch.cdist(p, p), kk, dim=1, largest=False),
             library_is="torch.cdist + topk over the same points (two calls, a yardstick; the port never calls it)",
         )

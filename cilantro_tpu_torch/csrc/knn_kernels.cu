@@ -9,65 +9,107 @@
 // Inputs are augmented rows of 8 float32 (q^ = [-2q, |q|^2, 1, 0...],
 // k^ = [k, 1, |k|^2, 0...], see fused_nn.py), so that the squared distance is
 // one 8-term dot product, summed left to right with __fmul_rn / __fadd_rn
-// (never contracted into FMAs), exactly as the nn1 kernels and the plain
-// PyTorch versions in fused_knn.py sum it. For each query row the kernels
-// return the k smallest (distance, key position) pairs over the visited keys
-// in lexicographic order, ascending, starting from (3e38, 0) in every slot:
+// (never contracted into FMAs, no tensor cores), exactly as the nn1 kernels
+// and the plain PyTorch versions in fused_knn.py sum it.
 //
-// - keys are visited in ascending position, and a key enters only if its
-//   distance is strictly below the current k-th, inserted after every slot
-//   whose distance is <= its own. That is the TPU kernels' tie rule
-//   (_fold_block_topk extracts the first minimum of a chunk and inserts it
-//   after every slot <= it; `dist < bound` drops a key equal to the k-th);
-// - a NaN sum never enters, nor does a sum >= 3e38 (masked and padding keys
-//   carry 3e38 in the |k|^2 slot);
-// - with exclude_diag the key whose position equals the query's row is
-//   skipped (_diag_mask: same-cloud searches drop the self pair).
+// The one invariant. For each query row the kernels return the k
+// lexicographically smallest (distance, key position) pairs over the visited
+// keys, ascending, with (3e38, 0) in the slots that no key fills; a NaN sum,
+// a sum >= 3e38 (masked and padding keys carry 3e38 in the |k|^2 slot) and,
+// with exclude_diag, the key whose position equals the query's row never
+// enter. That is the TPU kernels' result too: they visit keys in ascending
+// position and insert a key after every slot <= it only if it is strictly
+// below the k-th, which for ascending positions is the lexicographic order.
+// Here every comparison is between pairs, never distances alone, so the
+// result is a set: it does not depend on the order in which keys are visited
+// or on how the key range is split and merged again, and kernel and plain
+// version agree bit for bit.
 //
-// The full kernel visits every key. The compact kernel visits the key chunks
-// of tile_m keys that the live entries (flags bit 1) of its (qt, kt, flags)
-// list name for the block's query tile; the list is sorted by query tile and
-// each block finds its run by binary search. A query tile that no live entry
-// names keeps the starting state (the TPU kernel leaves those rows
-// undefined; knn_pruned's `visited` gate never reads them).
+// Design.
 //
-// Slots. Each thread keeps its query's k slots in dynamic shared memory,
-// slot j of thread t at [j * 128 + t] (a warp's threads touch consecutive
-// banks), while 128 * k * 8 bytes fit beside the key stage; above that
-// (k > kMaxSharedK) the slots live in the output rows in device memory. Both
-// go through the same code with a pointer and a stride, so every k >= 1 is
-// served. The current k-th distance stays in a register: most keys cost the
-// distance and one compare.
+// 1. Batched insertion. One thread per query; keys are staged 512 at a time
+//    in shared memory and read by the warp as broadcasts. A key passes the
+//    filter when its distance is <= the current k-th (or < 3e38 while fewer
+//    than k slots are filled) and then only goes into the thread's queue of
+//    kQueue (distance, position) pairs in shared memory: one store, no
+//    shifting. Before every step of kChains keys the warp votes (__any_sync)
+//    whether a queue could overflow; then, and at the end, the warp merges,
+//    with the exact pair comparison. The filter's bound moves only at
+//    merges, so more keys pass than with an insertion per key.
+//    - k <= 32: the slots live in registers, a template over the buckets
+//      K = 1, 4, 8, 12, 16, 24, 32. The K - k unused slots sit at the front as
+//      sentinels (-inf, -1) that no pair is below, so the k-th is always the
+//      last register. Each lane inserts its queued pairs by one branch-free
+//      pass of compares and selects over the K registers, all lanes at once:
+//      a merge costs the warp the longest queue's insertions, where the
+//      per-key insertion stalled the warp once for every entering key.
+//    - k > 32: each query's sorted list is a row in device memory (the
+//      output row, or a partial row), so neither shared memory nor occupancy
+//      grows with k. A merge walks the warp's queries whose queue is nearly
+//      full; for each, the 32 lanes merge its queue into its list by ranks:
+//      a candidate lands at (#list pairs below it) + (#candidates below it),
+//      counted over windows of 32 * W list pairs held in registers (W = 2,
+//      3, 4, 8 by k) and summed with __reduce_add_sync, and the list moves
+//      right, window by window from the end, stopping at the first window
+//      that does not move. This is the ranking form of the merge in Johnson,
+//      Douze and Jegou's WarpSelect ("Billion-scale similarity search with
+//      GPUs", arXiv:1702.08734, 4.2): a sorted list spread over the warp's
+//      lanes, each candidate placed by a count of compares spread over the
+//      lanes in place of a walk of up to k slots; no bitonic network, since
+//      every lane can read the list.
+// 2. A full grid. The full kernel splits the key range across gridDim.y
+//    blocks when the query blocks alone are fewer than a few per SM (the
+//    wrapper picks the split from the shapes and the SM count). Each split
+//    block writes its partial lists to scratch; the last block of a query
+//    block to finish (a ticket per query block, after a __threadfence) merges
+//    the partial lists of its queries through the same queue, in the same
+//    launch. By the invariant the result is the unsplit one.
+// 3. Independent work: kChains = 4 distances in flight per thread, each
+//    staged key read once by the warp for its 32 queries. (Two queries a
+//    thread, which halves the shared-memory reads, measured slower on the
+//    compact path: the doubled slots cost occupancy.)
+// 4. The compact kernel takes work items that the wrapper builds from the
+//    pair list on the device, with no read-back: the live entries sorted by
+//    query tile (dead ones last), one item per block of 256 queries of a
+//    tile (128 when tile_q is an odd multiple of 128) and part of its run of
+//    at most 16,384 keys, the longest runs first, so that no long run starts
+//    last and the split items come first (only they get partial rows); the
+//    grid is a bound from the caller's live count, and the items past the
+//    real ones are spare. Each live chunk is staged once per block. A block
+//    visits its tile's chunks nearest first by their distance in key order
+//    from its rows' own place (both sides share one Morton order in
+//    knn_pruned), so the k-th tightens early; the parts of a long run take
+//    turns along that order, and the last part to finish merges the partial
+//    lists as in 2. A tile that no live entry names keeps the starting state
+//    (the TPU kernel leaves those rows undefined; knn_pruned's `visited`
+//    gate never reads them).
 //
 // What bounds them: arithmetic. Per visited (query, key) pair of 3-D points
 // the function needs 5 products, 4 sums and a compare (10 operations; the
-// other 3 products and sums multiply zero padding), the top-k insertion on
-// top for the few keys that enter; at 67 TFLOP/s float32 off the tensor cores
-// (an FMA counted as two) that is the least time. These kernels issue the 8
-// products and 7 sums unfused for bit-exactness, on one dependent add chain
-// per query, so they cannot reach it. The bytes are small: each block stages
-// the keys through shared memory once for 128 queries. Design: one thread per
-// query, 128 queries per block (all inside one query tile of tile_q rows),
-// keys staged 256 at a time as float4 pairs and read by every thread as a
-// broadcast. The TPU design carried the k-slot running best in VMEM scratch
-// across a sequential grid of (query tile, key chunk) steps and extracted
-// minima from whole (TQ, TM) blocks; here the loop over key chunks runs
-// inside the block and each key is inserted as it comes.
+// other 3 products and sums multiply zero padding) at 67 TFLOP/s float32 off
+// the tensor cores. These kernels issue the 8 products and 7 sums unfused
+// for bit-exactness, plus the filter and the queue, about 24 instructions a
+// pair, so at best about 40% of that bound; the merges come on top, and at
+// k > 32 they dominate (PERF.md §6 has the times).
 //
 // Each launcher enqueues on the caller's stream, does not synchronise, and
 // returns the first CUDA error of its setup or launch, so that a refused
 // launch is reported.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kDim = 8;
-constexpr int kThreads = 128;  // queries per block, one per thread
-constexpr int kStage = 256;    // keys staged in shared memory at a time
-constexpr int kMaxSharedK = 192;  // 128 * 192 * 8 B = 192 KiB of slots at most
+constexpr int kStage = 512;        // keys staged in shared memory at a time
+constexpr int kChains = 4;         // distances in flight per thread
+constexpr int kQueue = 16;         // candidate queue slots per query
+constexpr int kFullQueries = 128;  // queries per block of the full kernel
+constexpr int kMaxQueries = 256;   // queries per block of the compact kernel
 constexpr float kInvalid = 3.0e38f;
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float aug_dot(const float (&q)[kDim], float4 a,
                                          float4 b) {
@@ -91,194 +133,536 @@ __device__ __forceinline__ void load_query(const float* __restrict__ qp,
   q[4] = b.x; q[5] = b.y; q[6] = b.z; q[7] = b.w;
 }
 
-// A query's k ascending slots: distance and key position of slot j at
-// d[j * stride], i[j * stride] (shared or device memory).
-struct Slots {
-  float* d;
-  int32_t* i;
+// (ad, ap) < (bd, bp) lexicographically. NaN is below nothing.
+__device__ __forceinline__ bool pair_less(float ad, int ap, float bd, int bp) {
+  return ad < bd || (ad == bd && ap < bp);
+}
+
+// The filter bound for a k-th distance: a key passes when d <= bound. While
+// the k-th is the starting 3e38 the bound is the float below it, so that
+// exactly the sums < 3e38 pass; afterwards it is the k-th itself (a key equal
+// to it passes, and the merge's pair comparison decides).
+__device__ __forceinline__ float filter_bound(float kth) {
+  return kth < kInvalid ? kth : __int_as_float(__float_as_int(kInvalid) - 1);
+}
+
+// One query's candidate queue in shared memory: (distance, position bits)
+// pairs, slot i at first[i * stride] (a block's queues interleave, so
+// consecutive lanes store to consecutive addresses).
+struct Queue {
+  float2* first;
+  float2* next;
   int stride;
-  int k;
-  float kth;  // d[(k - 1) * stride]
+  int cnt;
 
-  __device__ void init() {
-    for (int j = 0; j < k; ++j) {
-      d[j * stride] = kInvalid;
-      i[j * stride] = 0;
-    }
-    kth = kInvalid;
+  __device__ __forceinline__ void push(float dist, int pos) {
+    *next = make_float2(dist, __int_as_float(pos));
+    next += stride;
+    ++cnt;
   }
-
-  // Insert (dist, pos), dist < kth: after every slot <= dist, dropping the
-  // last.
-  __device__ void insert(float dist, int pos) {
-    int j = k - 1;
-    while (j > 0) {
-      const float prev = d[(j - 1) * stride];
-      if (!(prev > dist)) break;
-      d[j * stride] = prev;
-      i[j * stride] = i[(j - 1) * stride];
-      --j;
-    }
-    d[j * stride] = dist;
-    i[j * stride] = pos;
-    kth = d[(k - 1) * stride];
+  __device__ __forceinline__ float2 at(int i) const { return first[i * stride]; }
+  __device__ __forceinline__ void clear() {
+    next = first;
+    cnt = 0;
   }
 };
 
-__device__ __forceinline__ Slots make_slots(unsigned char* dyn, bool in_shared,
-                                            int k, int row,
-                                            float* __restrict__ out_d,
-                                            int32_t* __restrict__ out_i) {
-  Slots s;
-  s.k = k;
-  if (in_shared) {
-    float* sd = reinterpret_cast<float*>(dyn);
-    int32_t* si = reinterpret_cast<int32_t*>(dyn + (size_t)kThreads * k * 4);
-    s.d = sd + threadIdx.x;
-    s.i = si + threadIdx.x;
-    s.stride = kThreads;
-  } else {
-    s.d = out_d + (size_t)row * k;
-    s.i = out_i + (size_t)row * k;
-    s.stride = 1;
-  }
-  s.init();
-  return s;
-}
+// k <= K slots in registers, ascending, the K - k unused ones at the front
+// as (-inf, -1) sentinels: the k-th is always slot K - 1.
+template <int K>
+struct RegSlots {
+  float d[K];
+  int32_t p[K];
+  float bound;
 
-__device__ __forceinline__ void write_slots(const Slots& s, bool in_shared,
-                                            int row, float* __restrict__ out_d,
-                                            int32_t* __restrict__ out_i) {
-  if (!in_shared) return;  // the slots are the output rows
-  for (int j = 0; j < s.k; ++j) {
-    out_d[(size_t)row * s.k + j] = s.d[j * s.stride];
-    out_i[(size_t)row * s.k + j] = s.i[j * s.stride];
-  }
-}
-
-// Fold keys [k0, k0 + len) into the slots in ascending order. Every thread
-// of the block calls it with the same k0 and len (it synchronises).
-__device__ void fold_keys(const float* __restrict__ kp, int k0, int len,
-                          const float (&q)[kDim], int row, bool exclude_diag,
-                          Slots& s, float4* stage) {
-  const float4* src = reinterpret_cast<const float4*>(kp) + 2 * (size_t)k0;
-  for (int s0 = 0; s0 < len; s0 += kStage) {
-    const int n = min(kStage, len - s0);
-    __syncthreads();  // the previous stage has been read by every thread
-    for (int t = threadIdx.x; t < 2 * n; t += blockDim.x) {
-      stage[t] = src[2 * (size_t)s0 + t];
+  __device__ __forceinline__ void init(float*, int32_t*, int, int k) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const bool sentinel = j < K - k;
+      d[j] = sentinel ? -CUDART_INF_F : kInvalid;
+      p[j] = sentinel ? -1 : 0;
     }
-    __syncthreads();
-    for (int m = 0; m < n; ++m) {
-      const float d = aug_dot(q, stage[2 * m], stage[2 * m + 1]);
-      if (d < s.kth) {
-        const int pos = k0 + s0 + m;
-        if (!(exclude_diag && pos == row)) s.insert(d, pos);
+    bound = filter_bound(d[K - 1]);
+  }
+
+  // Insert (cd, cp) after every slot below it, dropping the last; a pair not
+  // below the last slot (or (inf, .)) changes nothing.
+  __device__ __forceinline__ void insert(float cd, int cp) {
+    bool below = pair_less(cd, cp, d[K - 1], p[K - 1]);  // below slot j
+#pragma unroll
+    for (int j = K - 1; j > 0; --j) {
+      const bool below_prev = pair_less(cd, cp, d[j - 1], p[j - 1]);
+      const float nd = below_prev ? d[j - 1] : (below ? cd : d[j]);
+      const int np = below_prev ? p[j - 1] : (below ? cp : p[j]);
+      d[j] = nd;
+      p[j] = np;
+      below = below_prev;
+    }
+    if (below) {
+      d[0] = cd;
+      p[0] = cp;
+    }
+  }
+
+  // Warp-collective: every lane inserts all its queued candidates.
+  __device__ __forceinline__ void merge(Queue& qu, int) {
+    const int most = __reduce_max_sync(kAll, qu.cnt);
+    for (int i = 0; i < most; ++i) {
+      const float2 c = i < qu.cnt ? qu.at(i) : make_float2(CUDART_INF_F, 0.0f);
+      insert(c.x, __float_as_int(c.y));
+    }
+    qu.clear();
+    bound = filter_bound(d[K - 1]);
+  }
+
+  __device__ __forceinline__ void store(float* __restrict__ out_d,
+                                        int32_t* __restrict__ out_i, int row,
+                                        int k) const {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (j >= K - k) {
+        out_d[(size_t)row * k + j - (K - k)] = d[j];
+        out_i[(size_t)row * k + j - (K - k)] = p[j];
       }
     }
   }
+};
+
+// k > 32: each query's ascending list is a row of (ld, li) in device memory
+// (the warp's 32 rows are contiguous). A merge reads the list in windows of
+// 32 * W pairs, W a lane.
+template <int W>
+struct MemSlots {
+  float* ld;
+  int32_t* li;
+  int k;
+  int row0;  // the warp's first list row
+  float bound;
+
+  // Warp-collective: (3e38, 0) in the warp's rows.
+  __device__ __forceinline__ void init(float* d, int32_t* p, int row, int kk) {
+    const int lane = threadIdx.x & 31;
+    ld = d;
+    li = p;
+    k = kk;
+    row0 = row - lane;
+    float* rd = d + (size_t)row0 * k;
+    int32_t* ri = p + (size_t)row0 * k;
+    for (int t = lane; t < 32 * k; t += 32) {
+      rd[t] = kInvalid;
+      ri[t] = 0;
+    }
+    __syncwarp();
+    bound = filter_bound(kInvalid);
+  }
+
+  // Warp-collective: merge the queue of every lane holding more than `above`
+  // candidates into its list, one query at a time, the 32 lanes together
+  // (see the design note at the top).
+  __device__ void merge(Queue& qu, int above) {
+    const int lane = threadIdx.x & 31;
+    // Lanes read each other's queues below: order the pushes before them
+    // (the vote and shuffle intrinsics order no memory).
+    __syncwarp();
+    unsigned pending = __ballot_sync(kAll, qu.cnt > above);
+    while (pending) {
+      const int src = __ffs(pending) - 1;
+      pending &= pending - 1;
+      const int n = __shfl_sync(kAll, qu.cnt, src);
+      float* rd = ld + (size_t)(row0 + src) * k;
+      int32_t* ri = li + (size_t)(row0 + src) * k;
+      // Candidate `lane` of query `src` (queue columns of a warp are
+      // consecutive) and its rank among the candidates: positions are
+      // distinct keys, so no two candidates tie, nor a candidate and a list
+      // pair (queued distances are < 3e38).
+      float cd = CUDART_INF_F;
+      int cp = 0;
+      if (lane < n) {
+        const float2 c = (qu.first + (src - lane))[lane * qu.stride];
+        cd = c.x;
+        cp = __float_as_int(c.y);
+      }
+      int rank = 0;
+      for (int m = 0; m < n; ++m) {
+        rank += pair_less(__shfl_sync(kAll, cd, m), __shfl_sync(kAll, cp, m), cd, cp);
+      }
+      float kth = CUDART_NAN_F;  // set by the lane that writes place k - 1
+      // Windows from the end: count the list pairs below each candidate and
+      // move each pair right by the number of candidates below it. Every
+      // write lands on a place whose old pair has been read; a window where
+      // nothing moves ends it (every pair before it is below every
+      // candidate).
+      for (int w0 = (k - 1) / (32 * W) * (32 * W); w0 >= 0; w0 -= 32 * W) {
+        float ed[W];
+        int ep[W];
+        int shift[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          const int j = w0 + e * 32 + lane;
+          ed[e] = j < k ? rd[j] : CUDART_INF_F;
+          ep[e] = j < k ? ri[j] : 0;
+          shift[e] = 0;
+        }
+        for (int m = 0; m < n; ++m) {
+          const float md = __shfl_sync(kAll, cd, m);
+          const int mp = __shfl_sync(kAll, cp, m);
+          int below = 0;
+#pragma unroll
+          for (int e = 0; e < W; ++e) {
+            const bool lt = pair_less(ed[e], ep[e], md, mp);  // never past k
+            below += lt;
+            shift[e] += !lt;
+          }
+          below = __reduce_add_sync(kAll, below);
+          if (lane == m) rank += below;
+        }
+        bool moves = false;
+#pragma unroll
+        for (int e = 0; e < W; ++e) moves |= w0 + e * 32 + lane < k && shift[e] > 0;
+        if (!__any_sync(kAll, moves)) {
+          rank += w0;
+          break;
+        }
+        __syncwarp();
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          const int j = w0 + e * 32 + lane;
+          if (j < k && shift[e] > 0 && j + shift[e] < k) {
+            rd[j + shift[e]] = ed[e];
+            ri[j + shift[e]] = ep[e];
+            if (j + shift[e] == k - 1) kth = ed[e];
+          }
+        }
+        __syncwarp();
+      }
+      if (lane < n && rank < k) {
+        rd[rank] = cd;
+        ri[rank] = cp;
+        if (rank == k - 1) kth = cd;
+      }
+      // The new k-th is whatever landed on place k - 1 (if nothing did,
+      // nothing entered).
+      const unsigned wrote = __ballot_sync(kAll, kth == kth);
+      if (wrote) kth = __shfl_sync(kAll, kth, __ffs(wrote) - 1);
+      __syncwarp();
+      if (lane == src) {
+        if (wrote) bound = filter_bound(kth);
+        qu.clear();
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float*, int32_t*, int, int) const {}
+};
+
+// A thread's query: row row0 + threadIdx.x of its block, list row
+// list_row0 + threadIdx.x, queue column threadIdx.x.
+template <class Slots>
+struct Query {
+  float q[kDim];
+  int row;
+  Slots s;
+  Queue qu;
+
+  __device__ __forceinline__ void init(const float* __restrict__ qp, int row0,
+                                       float2* queue, float* list_d,
+                                       int32_t* list_i, int list_row0, int k) {
+    row = row0 + threadIdx.x;
+    load_query(qp, row, q);
+    qu = Queue{queue + threadIdx.x, queue + threadIdx.x, (int)blockDim.x, 0};
+    s.init(list_d, list_i, list_row0 + threadIdx.x, k);
+  }
+
+  // Warp-collective: merge when some queue of the warp holds more than
+  // `above` candidates (every queue when above = 0).
+  __device__ __forceinline__ void merge_if(int above) {
+    if (__any_sync(kAll, qu.cnt > above)) s.merge(qu, above);
+  }
+
+  // Offer entry j of the query's partial list, row part_row0 + threadIdx.x
+  // of (part_d, part_i).
+  __device__ __forceinline__ void offer_partial(const float* part_d,
+                                                const int32_t* part_i,
+                                                int part_row0, int j, int k) {
+    merge_if(kQueue - 1);
+    const size_t at = ((size_t)part_row0 + threadIdx.x) * k + j;
+    const float cd = __ldcg(part_d + at);
+    if (cd <= s.bound) qu.push(cd, __ldcg(part_i + at));
+  }
+
+  __device__ __forceinline__ void store(float* out_d, int32_t* out_i,
+                                        int list_row0, int k) {
+    s.store(out_d, out_i, list_row0 + threadIdx.x, k);
+  }
+};
+
+// Filter the staged keys [0, n_pad) (positions pos0 + m) into the queue,
+// kChains distances in flight.
+template <bool kDiag, class Slots>
+__device__ __forceinline__ void scan_stage(const float4* stage, int n_pad,
+                                           int pos0, Query<Slots>& b) {
+  for (int m = 0; m < n_pad; m += kChains) {
+    b.merge_if(kQueue - kChains);
+    float d[kChains];
+#pragma unroll
+    for (int u = 0; u < kChains; ++u) {
+      d[u] = aug_dot(b.q, stage[2 * (m + u)], stage[2 * (m + u) + 1]);
+    }
+#pragma unroll
+    for (int u = 0; u < kChains; ++u) {
+      const int pos = pos0 + m + u;
+      if (d[u] <= b.s.bound && (!kDiag || pos != b.row)) b.qu.push(d[u], pos);
+    }
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Filter keys [k0, k0 + len) into the queues. Every thread of the block
+// calls it with the same k0 and len (it synchronises); the block's queries
+// are rows [row0, row0 + blockDim.x).
+template <class Slots>
+__device__ void fold_keys(const float* __restrict__ kp, int k0, int len,
+                          int row0, bool exclude_diag, Query<Slots>& b,
+                          float4* stage) {
+  const float4* src = reinterpret_cast<const float4*>(kp) + 2 * (size_t)k0;
+  const float4 nan4 = make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F,
+                                  CUDART_NAN_F);
+  for (int s0 = 0; s0 < len; s0 += kStage) {
+    const int n = min(kStage, len - s0);
+    const int n_pad = (n + kChains - 1) / kChains * kChains;
+    __syncthreads();  // the previous stage has been read by every thread
+    for (int t = threadIdx.x; t < 2 * n_pad; t += blockDim.x) {
+      // NaN rows pad the stage to whole steps: a NaN sum never passes.
+      stage[t] = t < 2 * n ? src[2 * (size_t)s0 + t] : nan4;
+    }
+    __syncthreads();
+    const int pos0 = k0 + s0;
+    if (exclude_diag && pos0 < row0 + (int)blockDim.x && row0 < pos0 + n) {
+      scan_stage<true>(stage, n_pad, pos0, b);
+    } else {
+      scan_stage<false>(stage, n_pad, pos0, b);
+    }
+  }
+}
+
+// grid (n_queries / 128, splits), one query a thread: block (x, y) folds
+// keys [y * split_len, min((y + 1) * split_len, n_keys)) for queries
+// [128 x, 128 x + 128). With one split it writes the output; with more,
+// partial lists to part (splits, n_queries, k), and the last block of each x
+// merges them into the output.
+template <class Slots>
+__global__ void __launch_bounds__(kFullQueries)
 knn_full_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
-                int n_keys, int k, int exclude_diag, int in_shared,
-                float* __restrict__ out_d, int32_t* __restrict__ out_i) {
+                int n_queries, int n_keys, int k, int exclude_diag,
+                int split_len, float* part_d, int32_t* part_i,
+                int32_t* tickets, float* out_d, int32_t* out_i) {
   __shared__ float4 stage[2 * kStage];
-  extern __shared__ unsigned char dyn[];
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  float q[kDim];
-  load_query(qp, row, q);
-  Slots s = make_slots(dyn, in_shared != 0, k, row, out_d, out_i);
-  fold_keys(kp, 0, n_keys, q, row, exclude_diag != 0, s, stage);
-  write_slots(s, in_shared != 0, row, out_d, out_i);
+  __shared__ float2 queue[kQueue * kFullQueries];
+  __shared__ int last;
+  const int splits = gridDim.y;
+  const int row0 = blockIdx.x * kFullQueries;
+  float* list_d = out_d;
+  int32_t* list_i = out_i;
+  int list_row0 = row0;
+  if (splits > 1) {
+    list_d = part_d;
+    list_i = part_i;
+    list_row0 = blockIdx.y * n_queries + row0;
+  }
+  Query<Slots> b;
+  b.init(qp, row0, queue, list_d, list_i, list_row0, k);
+  const int k0 = blockIdx.y * split_len;
+  fold_keys(kp, k0, min(split_len, n_keys - k0), row0, exclude_diag != 0, b,
+            stage);
+  b.merge_if(0);
+  b.store(list_d, list_i, list_row0, k);
+  if (splits == 1) return;
+
+  // The last split block of this query block merges the partial lists.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&tickets[blockIdx.x], 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  b.s.init(out_d, out_i, row0 + threadIdx.x, k);
+  for (int y = 0; y < splits; ++y) {
+    for (int j = 0; j < k; ++j) b.offer_partial(part_d, part_i, y * n_queries + row0, j, k);
+  }
+  b.merge_if(0);
+  b.store(out_d, out_i, row0, k);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One block per work item (tile, sub, part, parts): rows [tile * tile_q +
+// sub * blockDim.x, + blockDim.x) of query tile `tile`, against part `part`
+// of `parts` of the tile's live key chunks kt_live[starts[tile] ..
+// starts[tile + 1]) (the wrapper compacts the list, splits long runs and
+// orders the items by run length, longest first; items with tile < 0 are
+// spare). The chunks are visited nearest first by their distance in key
+// order from the rows' own place, and the parts take turns along that order,
+// so that each starts near. One part writes the output; with more, each
+// writes a partial list to part rows blockIdx.x * blockDim.x .. (the split
+// items are the first ones) and the last to finish merges them. The dynamic
+// shared memory holds the queues.
+template <class Slots>
+__global__ void __launch_bounds__(kMaxQueries)
 knn_compact_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
-                   const int32_t* __restrict__ qt_list,
-                   const int32_t* __restrict__ kt_list,
-                   const int32_t* __restrict__ flags, int budget, int tile_q,
-                   int tile_m, int k, int exclude_diag, int in_shared,
-                   float* __restrict__ out_d, int32_t* __restrict__ out_i) {
+                   const int32_t* __restrict__ kt_live,
+                   const int32_t* __restrict__ starts,
+                   const int4* __restrict__ items, int n_queries, int n_keys,
+                   int tile_q, int tile_m, int k, int exclude_diag,
+                   float* part_d, int32_t* part_i, int32_t* tickets,
+                   float* out_d, int32_t* out_i) {
   __shared__ float4 stage[2 * kStage];
-  extern __shared__ unsigned char dyn[];
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  const int qt = (blockIdx.x * kThreads) / tile_q;
-  // This query tile's run [begin, end) of the qt-sorted list.
-  int lo = 0, hi = budget;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (qt_list[mid] < qt) lo = mid + 1; else hi = mid;
+  __shared__ int last;
+  extern __shared__ float2 queue[];
+  const int4 item = items[blockIdx.x];
+  if (item.x < 0) return;
+  const int row0 = item.x * tile_q + item.y * blockDim.x;
+  const bool split = item.w > 1;
+  float* list_d = split ? part_d : out_d;
+  int32_t* list_i = split ? part_i : out_i;
+  const int list_row0 = split ? blockIdx.x * blockDim.x : row0;
+  Query<Slots> b;
+  b.init(qp, row0, queue, list_d, list_i, list_row0, k);
+  const int lo = starts[item.x];
+  const int hi = starts[item.x + 1];
+  const int center =
+      (int)(((long long)row0 + blockDim.x / 2) * n_keys / n_queries) / tile_m;
+  int near = lo;
+  for (int e = lo + 1; e < hi; ++e) {
+    if (abs(kt_live[e] - center) < abs(kt_live[near] - center)) near = e;
   }
-  const int begin = lo;
-  hi = budget;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (qt_list[mid] <= qt) lo = mid + 1; else hi = mid;
-  }
-  const int end = lo;
-  float q[kDim];
-  load_query(qp, row, q);
-  Slots s = make_slots(dyn, in_shared != 0, k, row, out_d, out_i);
-  for (int e = begin; e < end; ++e) {
-    if (flags[e] & 2) {
-      fold_keys(kp, kt_list[e] * tile_m, tile_m, q, row, exclude_diag != 0, s,
+  int left = near - 1, right = near;
+  for (int n = 0; n < hi - lo; ++n) {
+    int e;
+    if (right < hi && (left < lo || abs(kt_live[right] - center) <=
+                                        abs(kt_live[left] - center))) {
+      e = right++;
+    } else {
+      e = left--;
+    }
+    if (n % item.w == item.z) {
+      fold_keys(kp, kt_live[e] * tile_m, tile_m, row0, exclude_diag != 0, b,
                 stage);
     }
   }
-  write_slots(s, in_shared != 0, row, out_d, out_i);
+  b.merge_if(0);
+  b.store(list_d, list_i, list_row0, k);
+  if (!split) return;
+
+  // The last part of these rows merges the partial lists of all parts
+  // (items blockIdx.x - part .. + parts).
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int qb = item.x * (tile_q / blockDim.x) + item.y;
+    last = atomicAdd(&tickets[qb], 1) == item.w - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  b.s.init(out_d, out_i, row0 + threadIdx.x, k);
+  for (int p = 0; p < item.w; ++p) {
+    const int part_row0 = (blockIdx.x - item.z + p) * blockDim.x;
+    for (int j = 0; j < k; ++j) b.offer_partial(part_d, part_i, part_row0, j, k);
+  }
+  b.merge_if(0);
+  b.store(out_d, out_i, row0, k);
 }
 
-// Dynamic shared memory for k slots, 0 when they go to device memory; opts
-// the kernel in above the default 48 KiB.
-template <typename Kernel>
-cudaError_t slot_bytes(Kernel kernel, int k, int* in_shared, size_t* bytes) {
-  *in_shared = k <= kMaxSharedK;
-  *bytes = *in_shared ? (size_t)kThreads * k * 8 : 0;
-  if (*bytes == 0) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
+template <class Slots>
+cudaError_t launch_full(const void* qp, const void* kp, int n_queries,
+                        int n_keys, int k, int exclude_diag, int splits,
+                        int split_len, void* part_d, void* part_i,
+                        void* tickets, void* out_d, void* out_i,
+                        cudaStream_t stream) {
+  const dim3 grid(n_queries / kFullQueries, splits);
+  knn_full_kernel<Slots><<<grid, kFullQueries, 0, stream>>>(
+      static_cast<const float*>(qp), static_cast<const float*>(kp), n_queries,
+      n_keys, k, exclude_diag, split_len, static_cast<float*>(part_d),
+      static_cast<int32_t*>(part_i), static_cast<int32_t*>(tickets),
+      static_cast<float*>(out_d), static_cast<int32_t*>(out_i));
+  return cudaGetLastError();
+}
+
+template <class Slots>
+cudaError_t launch_compact(const void* qp, const void* kp, const void* kt_live,
+                           const void* starts, const void* items, int n_items,
+                           int rows, int n_queries, int n_keys, int tile_q,
+                           int tile_m, int k, int exclude_diag, void* part_d,
+                           void* part_i, void* tickets, void* out_d,
+                           void* out_i, cudaStream_t stream) {
+  if ((rows != kFullQueries && rows != kMaxQueries) || tile_q % rows != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const size_t bytes = (size_t)kQueue * rows * sizeof(float2);
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_compact_kernel<Slots>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  knn_compact_kernel<Slots><<<n_items, rows, bytes, stream>>>(
+      static_cast<const float*>(qp), static_cast<const float*>(kp),
+      static_cast<const int32_t*>(kt_live), static_cast<const int32_t*>(starts),
+      static_cast<const int4*>(items), n_queries, n_keys, tile_q, tile_m, k,
+      exclude_diag, static_cast<float*>(part_d), static_cast<int32_t*>(part_i),
+      static_cast<int32_t*>(tickets), static_cast<float*>(out_d),
+      static_cast<int32_t*>(out_i));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// The slot template the wrapper picked for k (fused_knn._slot_bucket): K > 0
+// keeps k <= K slots in registers; -W keeps list rows in device memory, for
+// k > 32, merged over windows of 32 * W pairs. Any other bucket is refused.
+#define KNN_DISPATCH(launch, ...)                                          \
+  if (bucket > 0 ? k > bucket : k <= 32) {                                 \
+    return static_cast<int>(cudaErrorInvalidValue);                       \
+  }                                                                        \
+  switch (bucket) {                                                        \
+    case 1: return static_cast<int>(launch<RegSlots<1>>(__VA_ARGS__));    \
+    case 4: return static_cast<int>(launch<RegSlots<4>>(__VA_ARGS__));    \
+    case 8: return static_cast<int>(launch<RegSlots<8>>(__VA_ARGS__));    \
+    case 12: return static_cast<int>(launch<RegSlots<12>>(__VA_ARGS__));  \
+    case 16: return static_cast<int>(launch<RegSlots<16>>(__VA_ARGS__));  \
+    case 24: return static_cast<int>(launch<RegSlots<24>>(__VA_ARGS__));  \
+    case 32: return static_cast<int>(launch<RegSlots<32>>(__VA_ARGS__));  \
+    case -2: return static_cast<int>(launch<MemSlots<2>>(__VA_ARGS__));   \
+    case -3: return static_cast<int>(launch<MemSlots<3>>(__VA_ARGS__));   \
+    case -4: return static_cast<int>(launch<MemSlots<4>>(__VA_ARGS__));   \
+    case -8: return static_cast<int>(launch<MemSlots<8>>(__VA_ARGS__));   \
+    default: return static_cast<int>(cudaErrorInvalidValue);              \
+  }
+
 extern "C" {
 
-// n_queries is a multiple of 128, k >= 1 and n_queries * k < 2^31 (the
-// wrappers check them).
+// n_queries is a multiple of 128, k >= 1, n_queries * k < 2^31, and with
+// splits > 1 part_d / part_i hold (splits, n_queries, k) and tickets
+// n_queries / 128 zeros (the wrapper checks and allocates them).
 int knn_full_launch(const void* qp, const void* kp, int n_queries, int n_keys,
-                    int k, int exclude_diag, void* out_d, void* out_i,
-                    void* stream) {
-  int in_shared;
-  size_t bytes;
-  cudaError_t err = slot_bytes(knn_full_kernel, k, &in_shared, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  knn_full_kernel<<<n_queries / kThreads, kThreads, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qp), static_cast<const float*>(kp), n_keys, k,
-      exclude_diag, in_shared, static_cast<float*>(out_d),
-      static_cast<int32_t*>(out_i));
-  return static_cast<int>(cudaGetLastError());
+                    int k, int bucket, int exclude_diag, int splits,
+                    int split_len, void* part_d, void* part_i, void* tickets,
+                    void* out_d, void* out_i, void* stream) {
+  KNN_DISPATCH(launch_full, qp, kp, n_queries, n_keys, k, exclude_diag, splits,
+               split_len, part_d, part_i, tickets, out_d, out_i,
+               static_cast<cudaStream_t>(stream))
 }
 
-int knn_compact_launch(const void* qp, const void* kp, const void* qt_list,
-                       const void* kt_list, const void* flags, int budget,
-                       int n_queries, int tile_q, int tile_m, int k,
-                       int exclude_diag, void* out_d, void* out_i,
-                       void* stream) {
-  int in_shared;
-  size_t bytes;
-  cudaError_t err = slot_bytes(knn_compact_kernel, k, &in_shared, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  knn_compact_kernel<<<n_queries / kThreads, kThreads, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qp), static_cast<const float*>(kp),
-      static_cast<const int32_t*>(qt_list),
-      static_cast<const int32_t*>(kt_list),
-      static_cast<const int32_t*>(flags), budget, tile_q, tile_m, k,
-      exclude_diag, in_shared, static_cast<float*>(out_d),
-      static_cast<int32_t*>(out_i));
-  return static_cast<int>(cudaGetLastError());
+// tile_q is a multiple of rows (128 or 256, the queries of a block); kt_live
+// holds the live chunks of the pair list sorted by query tile, starts[t] ..
+// starts[t + 1] those of tile t; items (n_items, 4) the blocks' work items,
+// the split ones first, and part_d / part_i (split items * rows, k) their
+// partial lists; tickets n_queries / rows zeros (the wrapper builds and
+// checks them).
+int knn_compact_launch(const void* qp, const void* kp, const void* kt_live,
+                       const void* starts, const void* items, int n_items,
+                       int rows, int n_queries, int n_keys, int tile_q,
+                       int tile_m, int k, int bucket, int exclude_diag,
+                       void* part_d, void* part_i, void* tickets, void* out_d,
+                       void* out_i, void* stream) {
+  KNN_DISPATCH(launch_compact, qp, kp, kt_live, starts, items, n_items, rows,
+               n_queries, n_keys, tile_q, tile_m, k, exclude_diag, part_d,
+               part_i, tickets, out_d, out_i, static_cast<cudaStream_t>(stream))
 }
 
 }  // extern "C"

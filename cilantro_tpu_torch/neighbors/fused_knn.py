@@ -31,7 +31,13 @@ rounding and near-tied neighbours may swap.
 
 What bounds the kernels: arithmetic, as for the nn1 kernels (10 float32
 operations per visited pair of 3-D points at 67 TFLOP/s on an H100 SXM),
-with the top-k insertion on top for the keys that enter. See the source for
+with the top-k merges on top for the keys that enter. Every comparison in
+the kernels is between ``(sum, position)`` pairs, so the result does not
+depend on the order of the keys or on how their range is split: the full
+kernel splits it across blocks when the query blocks alone cannot fill the
+card (:func:`_full_splits`), the compact kernel takes work items balanced
+over the pair list (:func:`_compact_items`) and visits chunks nearest
+first, and both merge partial lists in the same launch. See the source for
 the design.
 """
 
@@ -155,8 +161,8 @@ def knn_compact_rows_plain(qp, kp, qt, kt, flags, k, tile_q, tile_m, exclude_dia
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "knn_full_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "knn_compact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "knn_full_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "knn_compact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 
 
@@ -185,6 +191,79 @@ def _check_k(name, qp, k) -> None:
         raise ValueError(f"{name}: {qp.shape[0]} rows x k={k} reach 2^31 slots")
 
 
+# The kernels' shapes, as csrc/knn_kernels.cu names them: queries a block
+# (kFullQueries; the compact kernel's kMaxQueries), keys staged at a time
+# (kStage), distances in flight a thread (kChains) and candidate queue slots
+# a query (kQueue), one thread a query. The wrappers pick the rest and pass
+# it to the launch: a key split of at least 512 keys and 16·k while the grid
+# is short of _BLOCKS_PER_SM blocks an SM, the compact block (256 queries,
+# 128 when tile_q is an odd multiple of 128), parts of at most _PART_KEYS
+# keys, and the slot template (:func:`_slot_bucket`).
+_FULL_BLOCK = 128
+_COMPACT_BLOCK = 256
+_STAGE = 512
+_CHAINS = 4
+_QUEUE = 16
+_BLOCKS_PER_SM = 4
+_PART_KEYS = 16384
+_REG_BUCKETS = (1, 4, 8, 12, 16, 24, 32)
+
+
+def _slot_bucket(k: int) -> int:
+    """The kernels' slot template for ``k``: ``K > 0`` keeps the k slots in
+    K registers; ``-W`` (k > 32) keeps a list row in device memory, merged
+    over windows of 32·W pairs."""
+    for bucket in _REG_BUCKETS:
+        if k <= bucket:
+            return bucket
+    return -2 if k <= 64 else -3 if k <= 96 else -4 if k <= 128 else -8
+
+
+def _compact_rows(tile_q: int) -> int:
+    """Queries a block of the compact kernel."""
+    return _COMPACT_BLOCK if tile_q % _COMPACT_BLOCK == 0 else _FULL_BLOCK
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _full_splits(n_queries: int, n_keys: int, k: int, sms: int) -> Tuple[int, int]:
+    """``(splits, keys per split)`` of the full kernel: enough key splits
+    that the grid holds about ``_BLOCKS_PER_SM`` blocks per SM, each split a
+    whole number of stages and long enough (512 keys and 16·k) that its
+    partial list costs less than its keys."""
+    def ceil_div(a, b):
+        return -(-a // b)
+
+    least = _STAGE * max(1, ceil_div(16 * k, _STAGE))
+    wanted = ceil_div(_BLOCKS_PER_SM * sms, max(n_queries // _FULL_BLOCK, 1))
+    splits = max(1, min(wanted, n_keys // least))
+    length = _STAGE * ceil_div(ceil_div(n_keys, splits), _STAGE)
+    return max(1, ceil_div(n_keys, length)), length
+
+
+def kernel_design(
+    name: str, n_queries: int, n_keys: int, k: int, tile_q: int = 0, tile_m: int = 0, sms: int = 132
+) -> dict:
+    """The kernels' launch parameters at these shapes, from the values the
+    wrappers compute (for reports)."""
+    bucket = _slot_bucket(k)
+    design = {
+        "slots": f"registers, bucket K={bucket}" if bucket > 0
+        else f"device memory rows, merge windows of {-32 * bucket} pairs",
+        "queries_per_thread": 1, "distances_in_flight": _CHAINS, "queue_slots": _QUEUE,
+    }
+    if name == "knn_full":
+        splits, length = _full_splits(n_queries, n_keys, k, sms)
+        return dict(design, queries_per_block=_FULL_BLOCK, splits=splits, keys_per_split=length,
+                    blocks=n_queries // _FULL_BLOCK * splits)
+    return dict(design, queries_per_block=_compact_rows(tile_q),
+                chunks_per_part=max(1, _PART_KEYS // max(tile_m, 1)),
+                order="work items by live chunks, most first; chunks nearest first")
+
+
 def _outputs(qp, k):
     return (
         torch.empty((qp.shape[0], k), dtype=torch.float32, device=qp.device),
@@ -204,9 +283,16 @@ def knn_full_rows(
         return knn_full_rows_plain(qp, kp, k, exclude_diag)
     _check_cuda(name, qp.shape[0], ("qp", qp), ("kp", kp))
     dist, idx = _outputs(qp, k)
+    splits, length = _full_splits(qp.shape[0], kp.shape[0], k, _sm_count(qp.device))
+    # Partial lists of the key splits and one ticket per query block.
+    part = (splits if splits > 1 else 0, qp.shape[0], k)
+    part_d = torch.empty(part, dtype=torch.float32, device=qp.device)
+    part_i = torch.empty(part, dtype=torch.int32, device=qp.device)
+    tickets = torch.zeros(qp.shape[0] // _FULL_BLOCK, dtype=torch.int32, device=qp.device)
     _launch(
-        name, qp.data_ptr(), kp.data_ptr(), qp.shape[0], kp.shape[0], k,
-        int(exclude_diag), dist.data_ptr(), idx.data_ptr(),
+        name, qp.data_ptr(), kp.data_ptr(), qp.shape[0], kp.shape[0], k, _slot_bucket(k),
+        int(exclude_diag), splits, length, part_d.data_ptr(), part_i.data_ptr(),
+        tickets.data_ptr(), dist.data_ptr(), idx.data_ptr(),
     )
     return dist, idx
 
@@ -222,11 +308,14 @@ def knn_compact_rows(
     tile_q: int,
     tile_m: int,
     exclude_diag: bool = False,
+    max_live: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`knn_full_rows` over a compacted pair list: entry s names query
-    tile ``qt[s]`` and key chunk ``kt[s]``, and counts if ``flags[s] & 2``.
-    The list is sorted by ``qt`` (as ``fused_nn._compact_list`` builds it);
-    a query tile that no live entry names keeps ``(INVALID_DIST, 0)``."""
+    tile ``qt[s]`` and key chunk ``kt[s]``, and counts if ``flags[s] & 2``;
+    a query tile that no live entry names keeps ``(INVALID_DIST, 0)``.
+    ``max_live``: at most this many entries are live (``_knn_compact``
+    passes the count it has read back; default the list's length). It sizes
+    the kernel's grid and scratch, so that the wrapper reads nothing back."""
     name = "knn_compact"
     _check_rows(name, qp, kp, tile_q, tile_m)
     budget = qt.shape[0]
@@ -238,13 +327,70 @@ def knn_compact_rows(
     _check_cuda(
         name, tile_q, ("qp", qp), ("kp", kp), ("qt", qt), ("kt", kt), ("flags", flags)
     )
+    live = budget if max_live is None else min(max_live, budget)
+    work = _compact_items(qt, kt, flags, qp.shape[0] // tile_q, tile_q, tile_m, live)
+    return _compact_launch(qp, kp, work, k=k, tile_q=tile_q, tile_m=tile_m, exclude_diag=exclude_diag)
+
+
+def _compact_launch(qp, kp, work, *, k: int, tile_q: int, tile_m: int, exclude_diag: bool):
+    """The compact kernel's launch on the work that :func:`_compact_items`
+    built (its outputs and scratch allocated here)."""
+    kt_live, starts, items, rows, split_items = work
     dist, idx = _outputs(qp, k)
+    part = (split_items * rows, k)
+    part_d = torch.empty(part, dtype=torch.float32, device=qp.device)
+    part_i = torch.empty(part, dtype=torch.int32, device=qp.device)
+    tickets = torch.zeros(qp.shape[0] // rows, dtype=torch.int32, device=qp.device)
     _launch(
-        name, qp.data_ptr(), kp.data_ptr(), qt.data_ptr(), kt.data_ptr(),
-        flags.data_ptr(), budget, qp.shape[0], tile_q, tile_m, k, int(exclude_diag),
-        dist.data_ptr(), idx.data_ptr(),
+        "knn_compact", qp.data_ptr(), kp.data_ptr(), kt_live.data_ptr(), starts.data_ptr(),
+        items.data_ptr(), items.shape[0], rows, qp.shape[0], kp.shape[0], tile_q, tile_m, k,
+        _slot_bucket(k), int(exclude_diag), part_d.data_ptr(), part_i.data_ptr(),
+        tickets.data_ptr(), dist.data_ptr(), idx.data_ptr(),
     )
     return dist, idx
+
+
+def _compact_items(qt, kt, flags, n_qt: int, tile_q: int, tile_m: int, max_live: int):
+    """The compact kernel's work, built on the device with no read-back:
+    ``(kt_live, starts, items, rows, split_items)``. The list's live chunks
+    sorted by query tile (the dead entries after them) and, for query tile
+    t, its run ``kt_live[starts[t]:starts[t + 1]]``. One work item per block
+    of ``rows`` queries and part of at most ``_PART_KEYS`` keys of its
+    tile's run, ``(tile, block of the tile, part, parts)``, the tiles with
+    the longest runs first, so that no long run starts last and the split
+    items (parts > 1), which alone need partial lists, come first. With at
+    most ``max_live`` live entries there are at most ``len(items)`` items,
+    the spare ones ``tile = -1``, and at most ``split_items`` split ones."""
+    dev = qt.device
+    rows = _compact_rows(tile_q)
+    per_tile = tile_q // rows
+    per_part = max(1, _PART_KEYS // tile_m)
+    tile_of = torch.where((flags & 2) != 0, qt, n_qt)
+    tile_of, by_tile = torch.sort(tile_of, stable=True)
+    kt_live = kt[by_tile].contiguous()
+    tiles = torch.arange(n_qt + 1, dtype=torch.int32, device=dev)
+    starts = torch.searchsorted(tile_of, tiles).to(torch.int32)
+    runs = starts[1:] - starts[:-1]
+    parts = torch.clamp((runs + per_part - 1) // per_part, min=1)
+    order = torch.argsort(runs, descending=True, stable=True).to(torch.int32)
+    block_tile = order[:, None].expand(n_qt, per_tile).reshape(-1)
+    block_sub = torch.arange(per_tile, dtype=torch.int32, device=dev).repeat(n_qt)
+    block_parts = parts[block_tile.long()]
+    end = torch.cumsum(block_parts, 0)
+    # A tile takes max(1, ceil(run / per_part)) ≤ 1 + run / per_part parts;
+    # a split tile's run exceeds per_part, so its parts are ≤ 2·run /
+    # (per_part + 1).
+    n_items = per_tile * (n_qt + -(-max_live // per_part))
+    split_items = min(n_items, per_tile * (2 * max_live // (per_part + 1)))
+    item = torch.arange(n_items, device=dev)
+    block = torch.searchsorted(end, item, right=True)
+    spare = block >= n_qt * per_tile
+    block = torch.clamp(block, max=n_qt * per_tile - 1)
+    part = item - (end[block] - block_parts[block])
+    items = torch.stack(
+        [torch.where(spare, -1, block_tile[block]), block_sub[block], part, block_parts[block]], 1
+    ).to(torch.int32).contiguous()
+    return kt_live, starts, items, rows, split_items
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +414,8 @@ def _knn_compact(
         return knn_full_rows(qp, kp, k=k, exclude_diag=exclude_diag)
     lst = _pair_list(ids, tile_mask.shape[1], budget)
     return knn_compact_rows(
-        qp, kp, *lst, k=k, tile_q=tile_q, tile_m=tile_m, exclude_diag=exclude_diag
+        qp, kp, *lst, k=k, tile_q=tile_q, tile_m=tile_m, exclude_diag=exclude_diag,
+        max_live=ids.shape[0],
     )
 
 

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..core.coalesced import coalesced_gather
 from ..core.rgbd import CameraIntrinsics, _zbuffer_winner, scalar_like
 from ..core.transforms import Transform, compose, inverse
@@ -154,10 +155,11 @@ def radial_weights(
     width: int,
     intrinsics: CameraIntrinsics,
     sigma_px: float = 120.0,
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
     """Per-pixel radial confidence ``exp(-0.5 r² / σ²)``, ``r`` the pixel
     distance from the principal point, flattened row-major."""
+    device = resolve_device(device)
     u = (torch.arange(width, dtype=torch.float32, device=device) - intrinsics.cx)[None, :]
     v = (torch.arange(height, dtype=torch.float32, device=device) - intrinsics.cy)[:, None]
     r2 = u * u + v * v
@@ -179,9 +181,9 @@ def cleanup_map(fmap: FusionMap, confidence_thresh: float = 3.0) -> FusionMap:
     )
 
 
-def empty_map(capacity: int, with_colors: bool = True, device="cpu") -> FusionMap:
+def empty_map(capacity: int, with_colors: bool = True, device="cuda") -> FusionMap:
     w = _MAP_WIDTH if with_colors else _MAP_WIDTH_NC
-    data = torch.zeros((capacity, w), dtype=torch.float32, device=device)
+    data = torch.zeros((capacity, w), dtype=torch.float32, device=resolve_device(device))
     data[:, 0:3] = 1e30
     return FusionMap(data=data)
 

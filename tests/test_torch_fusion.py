@@ -166,7 +166,7 @@ def test_free_slot_table_compact_and_cleanup_match_jax(two_frame_map):
             tf_.cleanup_map(tm, thresh).data.numpy(), np.asarray(jf.cleanup_map(jm, thresh).data)
         )
     # exp differs by an ulp between XLA's CPU kernel and torch's.
-    np.testing.assert_allclose(tf_.radial_weights(H, W, TKS).numpy(),
+    np.testing.assert_allclose(tf_.radial_weights(H, W, TKS, device="cpu").numpy(),
                                np.asarray(jf.radial_weights(H, W, JKS)), rtol=2e-7, atol=0)
 
 

@@ -55,6 +55,21 @@ def test_cuda_default_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_fusion_helpers_default_to_the_card(monkeypatch):
+    """``empty_map`` and ``radial_weights`` build on the card unless asked
+    for the CPU, as JAX's counterparts build on the default device."""
+    from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
+    from cilantro_tpu_torch.slam import fusion
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fusion.empty_map(16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fusion.radial_weights(4, 5, CameraIntrinsics.kinect_640())
+    assert fusion.empty_map(16, device="cpu").data.device.type == "cpu"
+    assert fusion.radial_weights(4, 5, CameraIntrinsics.kinect_640(), device="cpu").shape == (20,)
+
+
 def test_icp_entry_points_raise_without_cuda(monkeypatch):
     from cilantro_tpu_torch import interop
     from cilantro_tpu_torch.core import containers

@@ -116,21 +116,201 @@ def test_compact_plain_matches_pallas(budget, diag):
     assert sum(tk.launch_counts.values()) == 0  # CPU tensors: plain versions
 
 
-def test_plain_versions_agree_bit_for_bit():
+def _tie_case(name):
+    """Augmented ``(qp, kp, k, exclude_diag)`` of one bit-exactness case
+    (256 query rows, 512 key rows, tiles 128/128): ``random`` points with
+    exact copies, ``duplicates`` (every point four times: whole groups of
+    equal distances), ``grid`` (integer grid points: equal distances
+    everywhere, across every split), ``diag`` (one cloud, the diagonal
+    excluded), ``masked`` (40% of the keys at 3e38), ``nan_rows`` (queries
+    at 1e30: inf and NaN sums) and ``few_valid`` (3 valid keys, k = 9)."""
+    rng = np.random.default_rng(11)
+    q = rng.uniform(-0.5, 0.5, (256, 3)).astype(np.float32)
+    keys = rng.uniform(-0.5, 0.5, (512, 3)).astype(np.float32)
+    keys[:60] = q[:60]
+    kv, k, diag = None, 7, False
+    if name == "duplicates":
+        keys = np.repeat(keys[:128], 4, axis=0)
+        q = keys[::2].copy()
+    elif name == "grid":
+        q = rng.integers(0, 5, (256, 3)).astype(np.float32)
+        keys = rng.integers(0, 5, (512, 3)).astype(np.float32)
+        k = 12
+    elif name == "diag":
+        keys = np.concatenate([q, q[::-1]])
+        diag = True
+    elif name == "masked":
+        kv = rng.random(512) < 0.6
+    elif name == "nan_rows":
+        q[rng.random(256) < 0.3] = 1e30
+    elif name == "few_valid":
+        kv = np.zeros(512, bool)
+        kv[[3, 200, 400]] = True
+        k = 9
+    qp, kp = tnn._augment(_t(q), _t(keys), None if kv is None else _t(kv), 128, 128)
+    return qp, kp, k, diag
+
+
+def _reference_topk(qp, kp, k, diag):
+    """The invariant, stated directly: per query row, the k
+    lexicographically smallest ``(sum, position)`` pairs of the plain 8-term
+    sums, a NaN sum, a sum >= 3e38 and (with ``diag``) the row's own
+    position left out, ``(3e38, 0)`` in the slots no key fills."""
+    sums = tnn._aug_dist(qp, kp).numpy()
+    pos = np.broadcast_to(np.arange(sums.shape[1]), sums.shape)
+    out = ~(sums < INVALID)
+    if diag:
+        out |= pos == np.arange(sums.shape[0])[:, None]
+    d = np.full((sums.shape[0], k), INVALID, np.float32)
+    i = np.zeros((sums.shape[0], k), np.int32)
+    for r in range(sums.shape[0]):
+        keep = np.flatnonzero(~out[r])
+        order = keep[np.lexsort((keep, sums[r, keep]))][:k]
+        d[r, : len(order)], i[r, : len(order)] = sums[r, order], order
+    return d, i
+
+
+def _lex_fold(parts, k):
+    """Fold partial ``(dist, idx)`` lists, in the given order, into k slots
+    starting from ``(3e38, 0)``, comparing ``(distance, position)`` pairs:
+    what the kernels' merges do. A pair not below 3e38 never enters."""
+    d = np.full((parts[0][0].shape[0], k), INVALID, np.float32)
+    i = np.zeros(d.shape, np.int32)
+    for pd, pi in parts:
+        pd, pi = np.asarray(pd), np.asarray(pi)
+        cd, ci = np.concatenate([d, pd], 1), np.concatenate([i, pi], 1)
+        cd = np.where(cd < INVALID, cd, INVALID)
+        ci = np.where(cd < INVALID, ci, 0)
+        order = np.lexsort((ci, cd), axis=1)[:, :k]
+        d, i = np.take_along_axis(cd, order, 1), np.take_along_axis(ci, order, 1)
+    return d, i
+
+
+CASES = ["random", "duplicates", "grid", "diag", "masked", "nan_rows", "few_valid"]
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_versions_agree_bit_for_bit(name):
     """On a full pair list the compact plain version gives the full one's
     bits, and both equal a float64-free reference: the k smallest (sum,
     position) pairs of the plain 8-term sums."""
-    _, q, keys = _clouds(5, 256, 512)
-    qp, kp = tnn._augment(_t(q), _t(keys), None, 128, 256)
-    full = torch.ones((2, 2), dtype=torch.bool)
-    lst = tnn._compact_list(full, 4)
-    df, i_f = tk.knn_full_rows(qp, kp, k=7)
-    dc, ic = tk.knn_compact_rows(qp, kp, *lst, k=7, tile_q=128, tile_m=256)
+    qp, kp, k, diag = _tie_case(name)
+    full = torch.ones((2, 4), dtype=torch.bool)
+    lst = tnn._compact_list(full, 8)
+    df, i_f = tk.knn_full_rows(qp, kp, k=k, exclude_diag=diag)
+    dc, ic = tk.knn_compact_rows(qp, kp, *lst, k=k, tile_q=128, tile_m=128, exclude_diag=diag)
     assert torch.equal(dc.view(torch.int32), df.view(torch.int32)) and torch.equal(ic, i_f)
-    sums = tnn._aug_dist(qp, kp).numpy()
-    order = np.lexsort((np.broadcast_to(np.arange(sums.shape[1]), sums.shape), sums), axis=1)[:, :7]
-    np.testing.assert_array_equal(i_f.numpy(), order)
-    np.testing.assert_array_equal(df.numpy(), np.take_along_axis(sums, order, 1))
+    d_ref, i_ref = _reference_topk(qp, kp, k, diag)
+    np.testing.assert_array_equal(i_f.numpy(), i_ref)
+    np.testing.assert_array_equal(df.numpy().view(np.int32), d_ref.view(np.int32))
+
+
+def _only_keys(kp, lo, hi):
+    """``kp`` with every key outside ``[lo, hi)`` masked (3e38 in its ‖k‖²
+    slot), so that a search over it visits that range at its own
+    positions."""
+    out = kp.clone()
+    out[:lo, 4] = INVALID
+    out[hi:, 4] = INVALID
+    return out
+
+
+@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("cuts", [(256,), (100, 384), (1, 128, 129, 511), (50, 60, 300, 301, 450)])
+def test_split_then_merge_is_the_unsplit_result(name, cuts):
+    """The key range split at ``cuts``, each piece searched on its own (the
+    full plain version over the piece), the partial lists folded by pairs in
+    ascending and in reversed order: both equal the unsplit search bit for
+    bit. So do the compact plain version's chunks visited one at a time in
+    reversed order. This is what lets the full kernel split its key range
+    across blocks and the compact kernel visit chunks nearest first."""
+    qp, kp, k, diag = _tie_case(name)
+    want_d, want_i = (t.numpy() for t in tk.knn_full_rows(qp, kp, k=k, exclude_diag=diag))
+    edges = (0, *cuts, kp.shape[0])
+    parts = [tk.knn_full_rows_plain(qp, _only_keys(kp, a, b), k, diag) for a, b in zip(edges, edges[1:])]
+    for order in (parts, parts[::-1]):
+        d, i = _lex_fold(order, k)
+        np.testing.assert_array_equal(i, want_i)
+        np.testing.assert_array_equal(d.view(np.int32), want_d.view(np.int32))
+    chunks = []
+    for c in reversed(range(kp.shape[0] // 128)):
+        one = torch.zeros((2, 4), dtype=torch.bool)
+        one[:, c] = True
+        lst = tnn._compact_list(one, 8)
+        chunks.append(tk.knn_compact_rows(qp, kp, *lst, k=k, tile_q=128, tile_m=128, exclude_diag=diag))
+    d, i = _lex_fold(chunks, k)
+    np.testing.assert_array_equal(i, want_i)
+    np.testing.assert_array_equal(d.view(np.int32), want_d.view(np.int32))
+
+
+def test_tie_heavy_plain_matches_pallas():
+    """Integer-grid points against JAX's interpret-mode full kernel: equal
+    distances everywhere, so indices may differ only between keys tied
+    within float32 rounding."""
+    rng = np.random.default_rng(12)
+    q = rng.integers(0, 5, (300, 3)).astype(np.float32)
+    keys = rng.integers(0, 5, (700, 3)).astype(np.float32)
+    kv = rng.random(700) < 0.9
+    qp, kp = jnn._augment(jnp.asarray(q), jnp.asarray(keys), jnp.asarray(kv), 128, 256)
+    dj, ij = jnn._knn_pallas_full(qp, kp, k=12, tile_q=128, tile_m=256, interpret=True)
+    dt, it = tk.knn_full_rows(_t(qp), _t(kp), k=12)
+    _assert_knn_close(_padded(q, qp.shape[0]), _padded(keys, kp.shape[0]), dt, it, dj, ij)
+
+
+@pytest.mark.parametrize("shuffle_dead", [False, True])
+def test_compact_work_items_cover_each_live_chunk_once(shuffle_dead):
+    """The compact kernel's work (``_compact_items``, plain tensor code):
+    every live chunk of every tile falls to exactly one part of each of the
+    tile's query blocks, parts as the kernel deals them (the n-th chunk of
+    the run to part n % parts), long runs split into parts of at most
+    ``_PART_KEYS`` keys, longest runs first, every tile at least once. The
+    split items come first and fit the partial rows, the real ones fit the
+    grid sized from the live count, and dead entries anywhere in the list
+    (``shuffle_dead``: spread among the live ones) are never visited."""
+    rng = np.random.default_rng(13)
+    n_qt, n_mt, tile_q, tile_m = 6, 200, 512, 128
+    mask = torch.from_numpy(rng.random((n_qt, n_mt)) < 0.3)
+    mask[2] = True  # 200 chunks of 128 keys: two parts
+    mask[4] = False  # no live chunk: one item keeps the starting state
+    live = int(mask.sum())
+    qt, kt, flags = tnn._compact_list(mask, mask.numel())
+    if shuffle_dead:
+        # Dead entries naming other tiles and chunks between the live ones.
+        pick = torch.from_numpy(np.sort(rng.permutation(mask.numel())[:live]))
+        flags = torch.where(torch.isin(torch.arange(mask.numel()), pick), 2, 0).to(torch.int32)
+        qt_all = torch.full((mask.numel(),), -7, dtype=torch.int32)
+        kt_all = torch.from_numpy(rng.integers(0, n_mt, mask.numel()).astype(np.int32))
+        qt_all[pick], kt_all[pick] = qt[:live], kt[:live]
+        qt, kt = qt_all, kt_all
+    kt_live, starts, items, rows, split_items = tk._compact_items(qt, kt, flags, n_qt, tile_q, tile_m, live)
+    assert rows == 256
+    real = items[items[:, 0] >= 0].tolist()
+    assert items[: len(real), 0].min() >= 0  # the spare items come last
+    split = [parts > 1 for *_, parts in real]
+    assert split == sorted(split, reverse=True) and sum(split) <= split_items
+    seen = {}
+    for tile, sub, part, parts in real:
+        run = kt_live[starts[tile] : starts[tile + 1]].tolist()
+        assert parts == max(1, -(-len(run) // (tk._PART_KEYS // tile_m)))
+        for n, c in enumerate(run):
+            if n % parts == part:
+                seen.setdefault((tile, sub), []).append(c)
+    for tile in range(n_qt):
+        for sub in range(tile_q // rows):
+            assert sorted(seen.get((tile, sub), [])) == np.flatnonzero(mask[tile].numpy()).tolist()
+    runs = [int(starts[t + 1] - starts[t]) for t, *_ in real]
+    assert runs == sorted(runs, reverse=True) and max(p for *_, p in real) == 2
+
+
+@pytest.mark.parametrize("n_queries,n_keys,k", [(128, 8192, 12), (8192, 8192, 12), (4096, 4096, 65), (307200, 307200, 12), (256, 100, 3)])
+def test_full_kernel_splits_cover_the_keys(n_queries, n_keys, k):
+    """The full kernel's key splits: whole stages, at least 16·k keys each
+    where there are that many, every key in exactly one split, more
+    splits only while the grid is short of blocks."""
+    splits, length = tk._full_splits(n_queries, n_keys, k, 132)
+    assert length % 512 == 0 and (splits - 1) * length < n_keys <= splits * length
+    assert splits == 1 or length >= 16 * k
+    assert splits == 1 or (n_queries // 128) * (splits - 1) < 4 * 132
 
 
 def test_wrappers_check_their_operands():

@@ -45,16 +45,22 @@ def _launched(name, fn):
     return out
 
 
-def _operands(dev, seed=0, qn=1000, mn=3000, same_cloud=False, invalid_queries=False):
+def _operands(dev, seed=0, qn=1000, mn=3000, same_cloud=False, invalid_queries=False, grid=False):
     """Augmented rows with exact copies (distance-0 ties), repeated keys
     (index ties), 10% masked keys and, if asked, queries at 1e30 (their
-    ‖q‖² is inf: inf and NaN sums)."""
+    ‖q‖² is inf: inf and NaN sums). ``grid``: points on an integer grid of
+    side 8, so that most distances tie with many others."""
     rng = np.random.default_rng(seed)
-    q = rng.uniform(-0.5, 0.5, (qn, 3)).astype(np.float32)
-    k = q.copy() if same_cloud else rng.uniform(-0.5, 0.5, (mn, 3)).astype(np.float32)
+    if grid:
+        q = rng.integers(0, 8, (qn, 3)).astype(np.float32)
+        k = q.copy() if same_cloud else rng.integers(0, 8, (mn, 3)).astype(np.float32)
+    else:
+        q = rng.uniform(-0.5, 0.5, (qn, 3)).astype(np.float32)
+        k = q.copy() if same_cloud else rng.uniform(-0.5, 0.5, (mn, 3)).astype(np.float32)
     if not same_cloud:
         k[:100] = q[:100]
-    k[500:700] = k[:200]
+    n = len(k[500:700])
+    k[500 : 500 + n] = k[:n]
     if invalid_queries:
         q[rng.random(qn) < 0.2] = 1e30
     kv = torch.from_numpy(rng.random(k.shape[0]) < 0.9)
@@ -66,8 +72,13 @@ def _operands(dev, seed=0, qn=1000, mn=3000, same_cloud=False, invalid_queries=F
     return qp.to(dev), kp.to(dev), torch.from_numpy(mask).to(dev)
 
 
+# Each side of the kernels' register buckets (32 | 33: registers | device
+# memory rows) and of the full kernel's key splits.
+KS = [1, 12, 32, 33, 65, 200]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 12, 65, 200])
+@pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("diag", [False, True])
 def test_full_kernel_matches_plain(cuda, k, diag):
     qp, kp, _ = _operands(cuda, seed=k, same_cloud=diag)
@@ -76,7 +87,57 @@ def test_full_kernel_matches_plain(cuda, k, diag):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 12, 65, 200])
+@pytest.mark.parametrize("k", [1, 12, 33, 200])
+@pytest.mark.parametrize("diag", [False, True])
+def test_full_kernel_split_path_matches_plain(cuda, k, diag):
+    """128 queries against 8,192 keys: one query block, so the kernel
+    splits the keys across blocks and merges the partial lists. Keys 0-99
+    are queries 0-99, so the diagonal drops their distance-0 pairs."""
+    qp, kp, _ = _operands(cuda, seed=20 + k, qn=128, mn=8192)
+    assert knn._full_splits(qp.shape[0], kp.shape[0], k, knn._sm_count(qp.device))[0] > 1
+    out = _launched("knn_full", lambda: knn.knn_full_rows(qp, kp, k=k, exclude_diag=diag))
+    _same(out, knn.knn_full_rows_plain(qp, kp, k, diag))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [12, 65])
+@pytest.mark.parametrize("diag", [False, True])
+def test_compact_long_runs_split_into_parts_match_plain(cuda, k, diag):
+    """Query tiles whose runs name more key chunks than one block takes
+    (16,384 keys: 64 chunks of 256) are split into parts whose partial lists
+    the last part merges; the other tiles keep one part."""
+    qp, kp, _ = _operands(cuda, seed=40 + k, qn=36000 if diag else 512, mn=36000, same_cloud=diag)
+    n_qt, n_mt = qp.shape[0] // TQ, kp.shape[0] // TM
+    mask = torch.from_numpy(np.random.default_rng(k).random((n_qt, n_mt)) < 0.3).to(cuda)
+    mask[0] = True  # 141 chunks: three parts
+    mask[1, :70] = True  # at least 70: two parts
+    qt, kt, fl = nn._compact_list(mask, mask.numel())
+    items = knn._compact_items(qt, kt, fl, n_qt, TQ, TM, int(mask.sum()))[2]
+    assert int(items[:, 3].max()) == 3
+    _same(
+        knn.knn_compact_rows(qp, kp, qt, kt, fl, k=k, tile_q=TQ, tile_m=TM, exclude_diag=diag),
+        knn.knn_compact_rows_plain(qp, kp, qt, kt, fl, k, TQ, TM, diag),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [12, 65])
+@pytest.mark.parametrize("diag", [False, True])
+def test_tie_heavy_grid_matches_plain(cuda, k, diag):
+    """Integer-grid points: equal distances everywhere, straddling the full
+    kernel's key splits and the compact kernel's chunks."""
+    qn = 4000 if diag else 256
+    qp, kp, mask = _operands(cuda, seed=30 + k, qn=qn, mn=6000, same_cloud=diag, grid=True)
+    _same(knn.knn_full_rows(qp, kp, k=k, exclude_diag=diag), knn.knn_full_rows_plain(qp, kp, k, diag))
+    qt, kt, fl = nn._compact_list(mask, mask.numel())
+    _same(
+        knn.knn_compact_rows(qp, kp, qt, kt, fl, k=k, tile_q=TQ, tile_m=TM, exclude_diag=diag),
+        knn.knn_compact_rows_plain(qp, kp, qt, kt, fl, k, TQ, TM, diag),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("diag", [False, True])
 def test_compact_kernel_matches_plain(cuda, k, diag):
     qp, kp, mask = _operands(cuda, seed=10 + k, same_cloud=diag)
@@ -92,17 +153,43 @@ def test_compact_kernel_matches_plain(cuda, k, diag):
 
 
 @pytest.mark.cuda
-def test_compact_wrapper_and_its_full_fallback(cuda):
+@pytest.mark.parametrize("k", [12, 200])
+def test_compact_wrapper_and_its_full_fallback(cuda, k):
     qp, kp, mask = _operands(cuda, seed=3)
     full_mask = torch.ones_like(mask)  # every pair: the full pass visits the same set
-    want = knn.knn_full_rows_plain(qp, kp, 12)
+    want = knn.knn_full_rows_plain(qp, kp, k)
     count = int(full_mask.sum())
     for budget, route in ((count, "knn_compact"), (count - 1, "knn_full")):
         out = _launched(
             route,
-            lambda: knn._knn_compact(qp, kp, full_mask, k=12, budget=budget, tile_q=TQ, tile_m=TM),
+            lambda: knn._knn_compact(qp, kp, full_mask, k=k, budget=budget, tile_q=TQ, tile_m=TM),
         )
         _same(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [12, 65])
+def test_compact_wrapper_reads_nothing_back(cuda, k):
+    """Given its live count, the compact wrapper builds its work on the
+    card without a host sync, and dead entries spread among the live ones
+    (other tiles and chunks) are never visited."""
+    qp, kp, mask = _operands(cuda, seed=50 + k)
+    qt, kt, fl = nn._compact_list(mask, mask.numel())
+    live = int(mask.sum())
+    rng = np.random.default_rng(k)
+    pick = torch.from_numpy(np.sort(rng.permutation(mask.numel())[:live])).to(cuda)
+    spread = torch.isin(torch.arange(mask.numel(), device=cuda), pick)
+    fl2 = torch.where(spread, 2, 0).to(torch.int32)
+    qt2 = torch.from_numpy(rng.integers(0, mask.shape[0], mask.numel()).astype(np.int32)).to(cuda)
+    kt2 = torch.from_numpy(rng.integers(0, mask.shape[1], mask.numel()).astype(np.int32)).to(cuda)
+    qt2[pick], kt2[pick] = qt[:live], kt[:live]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = knn.knn_compact_rows(qp, kp, qt2, kt2, fl2, k=k, tile_q=TQ, tile_m=TM, max_live=live)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(out, knn.knn_compact_rows_plain(qp, kp, qt, kt, fl, k, TQ, TM))
 
 
 @pytest.mark.cuda
