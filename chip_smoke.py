@@ -22,12 +22,18 @@ in order; any failure raises and exits non-zero without the final line:
    plain versions) and require the poses to agree within 1e-4 m / 1e-4 rad;
 5. hold each nn1 kernel against its plain version on the card, bit for bit:
    the fused kernel at 4096 × 4096 (the ``entry()`` pair) and 32768 × 32768
-   (the coarse ICP level), the compact and masked kernels at the tile pairs
-   of the first full-resolution pass of the 640×480 pair, and the compact
-   wrapper with a budget one short of the survivors (its masked fallback);
-   each timed as in phase 2 beside its arithmetic bound (D + 2 products,
-   D + 1 sums and a compare per visited pair of D-dimensional points, at
-   67 TFLOP/s) and, for the fused kernel, ``torch.cdist`` + ``min`` as a
+   (the coarse ICP level); the compact and masked kernels (D + 2 terms) at
+   the tile pairs of the first full-resolution pass of the 640×480 pair,
+   with the pair list's live chunks per query tile (min, median, max) and
+   the previous design's time, then the same clouds in 2-D (x, y), then the
+   masked kernel at the first pass of phase 7 (0.5 m gate: more survivors
+   than the budget); the compact wrapper with a budget one short of the
+   survivors (its masked fallback); both launches under
+   ``torch.cuda.set_sync_debug_mode("error")``; each case timed as in phase
+   2 beside its arithmetic bound (D + 2 products, D + 1 sums and a compare
+   per visited pair of D-dimensional points, at 67 TFLOP/s; plain versions
+   of the 2-D and wide-gate cases timed once) with the kernel's launch
+   parameters and, for the fused kernel, ``torch.cdist`` + ``min`` as a
    two-call yardstick;
 6. rigid ICP, the second main path: ``icp_multires`` registers frame 1 of
    the sequence onto frame 0 (307,200 points each) with the JAX bench's
@@ -38,9 +44,10 @@ in order; any failure raises and exits non-zero without the final line:
    window;
 7. ``icp`` with the ``entry()`` settings (a 0.5 m gate) on the same pair:
    more tile pairs survive than the budget holds, so the masked kernel runs;
-8. ``entry()`` on the card: the fused kernel must run, and the toy pair's
+8. ``entry()`` on the card: the fused kernel must run, the toy pair's
    transform must come out within 5e-3 m and 5e-3 rad of the one that made
-   it (0.027 m and 0.05 rad; the 10 iterations stop short of convergence);
+   it (0.027 m and 0.05 rad; the 10 iterations stop short of convergence),
+   and its ``ICPResult.iterations`` must lie on the card;
 9. ``icp_multires`` on a 160×120 pair on the card and on the CPU (the plain
    versions, pruned as on the card), agreeing within 1e-4 m / 1e-4 rad;
 10. the pool pipeline, the third main path: ``run_fusion_sequence`` on the
@@ -393,9 +400,13 @@ def coarse_clouds(src, dst, level):
 
 def first_pass(nn, src, dst, mcd):
     """The augmented operands and tile pairs of the first nn1 pass of
-    ``icp`` (identity start) on ``src`` → ``dst``."""
+    ``icp`` (identity start) on ``src`` → ``dst``; 2-D clouds, which
+    ``icp`` does not prune, get the plan ``nn1_pruned`` would make."""
     (sp, _, sv), (dp, _, dv) = src, dst
-    plan = nn.maybe_make_nn1_prune_plan(dp, mcd, sp, key_valid=dv, query_valid=sv)
+    if sp.shape[1] == 2:
+        plan = nn.make_nn1_prune_plan(dp, mcd ** 0.5, sp, key_valid=dv, query_valid=sv)
+    else:
+        plan = nn.maybe_make_nn1_prune_plan(dp, mcd, sp, key_valid=dv, query_valid=sv)
     if plan is None:
         raise AssertionError("the first pass of the main path is not pruned")
     qs, within, budget = nn.prune_mask(sp, plan)
@@ -403,25 +414,89 @@ def first_pass(nn, src, dst, mcd):
     return qp, plan.kp, within, budget, plan.tile_q, plan.tile_m
 
 
+# Kernel ms of the previous compact and masked nn1 kernels (one thread per
+# query, 8 terms, each block walking its query tile's whole run) at phase
+# 5's first-pass list, NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6 table.
+PREVIOUS_NN1_MS = {
+    ("nn1_compact", "first pass"): 7.406591892242432,
+    ("nn1_masked", "first pass"): 7.277247905731201,
+}
+
+
+def once_ms(fn) -> float:
+    """Device ms of one run of ``fn`` (CUDA events), for plain versions too
+    slow to repeat 25 times."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def nn1_kernel_checks(nn, pair, coarse, entry_inputs):
     """Phase 5: each nn1 kernel against its plain version, timed."""
     out = {}
 
-    def record(name, shape, kernel, plain, pairs, nbytes, library=None, **extra):
+    def record(name, shape, kernel, plain, pairs, nbytes, library=None, dim=3,
+               plain_timer=device_ms, case=None, **extra):
         k_out, p_out = kernel(), plain()
         torch.cuda.synchronize()
         assert_same_bits(name, k_out, p_out)
         err = max(max_abs_err(a, b) for a, b in zip(k_out, p_out))
-        bound_ms, bound_by = nn1_bound(pairs, nbytes)
+        bound_ms, bound_by = nn1_bound(pairs, nbytes, dim)
         entry = dict(
             name=name, route="cuda", source="cilantro_tpu_torch/csrc/nn1_kernels.cu",
             replaces=REPLACES[name], max_abs_err=err, ms=device_ms(kernel),
-            plain_ms=device_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+            plain_ms=plain_timer(plain), bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None if library is None else device_ms(library),
             pairs=pairs, bytes=nbytes,
         )
+        if name in nn.kernel_design:
+            extra.update(design=dict(nn.kernel_design[name]))
+        if case is not None:
+            extra.update(case=case, previous_design_ms=PREVIOUS_NN1_MS.get((name, case)))
         emit(phase="nn1_kernel_vs_plain", tolerance="bit-exact", shape=shape, **entry, **extra)
         return entry
+
+    def split_cases(case, src, dst, mcd, dim, plain_timer, routes=("nn1_compact", "nn1_masked"),
+                    over_budget=False):
+        """The compact and masked kernels at the first pass of ``icp`` with
+        the gate ``mcd`` on ``src`` → ``dst``; returns their entries."""
+        qp, kp, within, budget, tq, tm = first_pass(nn, src, dst, mcd)
+        terms = nn._live_terms(dim)
+        survivors = int(within.sum())
+        runs = within.sum(dim=1).cpu().numpy()
+        emit(phase="nn1_pair_list", case=case, dim=dim, survivors=survivors, budget=budget,
+             over_budget=survivors > budget, query_tiles=int(within.shape[0]),
+             key_chunks=int(within.shape[1]), live_chunks_per_query_tile=dict(
+                 min=int(runs.min()), median=float(np.median(runs)), max=int(runs.max())))
+        if over_budget and not survivors > budget:
+            raise AssertionError(f"{case}: {survivors} survivors fit the budget of {budget}")
+        pairs = survivors * tq * tm
+        io_bytes = (qp.numel() + kp.numel()) * 4 + qp.shape[0] * 8
+        shape = f"{qp.shape[0]}x{kp.shape[0]}, tiles {tq}x{tm}, {survivors} of {within.numel()} pairs, {dim}-D"
+        mask = within.to(torch.int32)
+        entries = {}
+        if "nn1_compact" in routes:
+            qt, kt, fl = nn._compact_list(within, budget)
+            entries["nn1_compact"] = record(
+                "nn1_compact", shape,
+                lambda: nn.compact_rows(qp, kp, qt, kt, fl, tile_q=tq, tile_m=tm, terms=terms),
+                lambda: nn.compact_rows_plain(qp, kp, qt, kt, fl, tq, tm),
+                pairs, io_bytes + 3 * 4 * budget, dim=dim, plain_timer=plain_timer, case=case,
+                budget=budget, terms=terms,
+            )
+        entries["nn1_masked"] = record(
+            "nn1_masked", shape,
+            lambda: nn.masked_rows(qp, kp, mask, tile_q=tq, tile_m=tm, terms=terms),
+            lambda: nn.masked_rows_plain(qp, kp, mask, tq, tm),
+            pairs, io_bytes + mask.numel() * 4, dim=dim, plain_timer=plain_timer, case=case,
+            terms=terms,
+        )
+        return entries, (qp, kp, within, survivors, tq, tm, terms)
 
     # Fused: the entry pair (its main-path shape), then the coarse level's size.
     for label, (q, kk, kv) in (
@@ -437,38 +512,41 @@ def nn1_kernel_checks(nn, pair, coarse, entry_inputs):
         )
         out.setdefault("nn1_fused", entry)
 
-    # Compact and masked: the first full-resolution pass of the main path.
+    # Compact and masked: the first full-resolution pass of the main path
+    # (the compact kernel's row), then the same clouds in 2-D.
     src, dst = pair
-    qp, kp, within, budget, tq, tm = first_pass(nn, src, dst, BENCH_LEVELS[1][3])
-    survivors = int(within.sum())
-    qt, kt, fl = nn._compact_list(within, budget)
-    pairs = survivors * tq * tm
-    io_bytes = (qp.numel() + kp.numel()) * 4 + qp.shape[0] * 8
-    shape = f"{qp.shape[0]}x{kp.shape[0]}, tiles {tq}x{tm}, {survivors} of {within.numel()} pairs"
-    out["nn1_compact"] = record(
-        "nn1_compact", shape,
-        lambda: nn.compact_rows(qp, kp, qt, kt, fl, tile_q=tq, tile_m=tm),
-        lambda: nn.compact_rows_plain(qp, kp, qt, kt, fl, tq, tm),
-        pairs, io_bytes + 3 * 4 * budget, budget=budget,
-    )
-    mask = within.to(torch.int32)
-    out["nn1_masked"] = record(
-        "nn1_masked", shape,
-        lambda: nn.masked_rows(qp, kp, mask, tile_q=tq, tile_m=tm),
-        lambda: nn.masked_rows_plain(qp, kp, mask, tq, tm),
-        pairs, io_bytes + mask.numel() * 4,
-    )
+    first, (qp, kp, within, survivors, tq, tm, terms) = split_cases(
+        "first pass", src, dst, BENCH_LEVELS[1][3], 3, device_ms)
+    out["nn1_compact"] = first["nn1_compact"]
+    flat = [(c[0][:, :2].contiguous(),) + tuple(c[1:]) for c in (src, dst)]
+    split_cases("first pass, x-y only", flat[0], flat[1], BENCH_LEVELS[1][3], 2, once_ms)
+    # The masked kernel at its own path's first pass: icp with the 0.5 m gate
+    # overflows the budget (the masked kernel's row).
+    wide, _ = split_cases("wide-gate first pass", src, dst, 0.25, 3, once_ms, routes=("nn1_masked",),
+                          over_budget=True)
+    out["nn1_masked"] = wide["nn1_masked"]
     # The compact wrapper's fallback: a budget one short of the survivors.
     before = dict(nn.launch_counts)
-    k_out = nn._nn1_compact(qp, kp, within, budget=survivors - 1, tile_q=tq, tile_m=tm)
+    k_out = nn._nn1_compact(qp, kp, within, budget=survivors - 1, tile_q=tq, tile_m=tm, terms=terms)
     torch.cuda.synchronize()
     routed = {n: nn.launch_counts[n] - before[n] for n in before}
     if routed != {"nn1_fused": 0, "nn1_masked": 1, "nn1_compact": 0}:
         raise AssertionError(f"the over-budget compact call launched {routed}")
     assert_same_bits("nn1_compact fallback", [t.reshape(-1) for t in k_out],
-                     nn.masked_rows_plain(qp, kp, mask, tq, tm))
+                     nn.masked_rows_plain(qp, kp, within.to(torch.int32), tq, tm))
     emit(phase="nn1_compact_fallback", budget=survivors - 1, survivors=survivors,
          launches=routed, tolerance="bit-exact", max_abs_err=0.0)
+    # Neither launch syncs with the host.
+    qt, kt, fl = nn._compact_list(within, within.numel())
+    mask = within.to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nn.compact_rows(qp, kp, qt, kt, fl, tile_q=tq, tile_m=tm, terms=terms)
+        nn.masked_rows(qp, kp, mask, tile_q=tq, tile_m=tm, terms=terms)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    emit(phase="nn1_no_sync", checked=["nn1_compact", "nn1_masked"])
     return out
 
 
@@ -586,18 +664,36 @@ def entry_path(nn):
     recovered here exactly by a fit; the registration stops unconverged
     after its 10 iterations, so it is held to 5e-3, a tenth of the
     motion. Card against CPU is
-    ``tests/test_torch_nn1_cuda.py``'s to check."""
-    from cilantro_tpu_torch.entry import entry
+    ``tests/test_torch_nn1_cuda.py``'s to check. The registration's
+    ``ICPResult`` (kept through a wrapper of ``icp``) must lie on the card,
+    ``iterations`` included."""
+    from unittest import mock
 
-    fwd, args = entry()
+    import cilantro_tpu_torch.entry as entry_mod
+
+    fwd, args = entry_mod.entry()
+    results = []
+    level_icp = entry_mod.icp
+
+    def kept_icp(*a, **kw):
+        results.append(level_icp(*a, **kw))
+        return results[-1]
+
     nn.reset_launch_counts()
     t0 = time.perf_counter()
-    lin, tr = fwd(*args)
+    with mock.patch.object(entry_mod, "icp", kept_icp):
+        lin, tr = fwd(*args)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = dict(nn.launch_counts)
     if launches["nn1_fused"] == 0:
         raise AssertionError(f"entry() did not run the fused kernel: {launches}")
+    res = results[-1]
+    if res.iterations.device != res.transform.linear.device or res.iterations.device.type != "cuda":
+        raise AssertionError(
+            f"entry()'s iterations lie on {res.iterations.device}, its transform on "
+            f"{res.transform.linear.device}"
+        )
     r, t = rigid_fit(args[0].cpu().numpy(), args[1].cpu().numpy())
     rel = np.eye(4)
     rel[:3, :3], rel[:3, 3] = r, t
@@ -607,7 +703,8 @@ def entry_path(nn):
         raise AssertionError(
             f"entry() is off by {dt} m / {dr} rad; the pair is {true_t} m / {true_r} rad apart"
         )
-    emit(phase="entry", launches=launches, ms=ms, translation_error_m=dt,
+    emit(phase="entry", launches=launches, ms=ms, iterations=int(res.iterations),
+         iterations_device=str(res.iterations.device), translation_error_m=dt,
          rotation_error_rad=dr, true_translation_m=true_t, true_rotation_rad=true_r)
     return launches
 

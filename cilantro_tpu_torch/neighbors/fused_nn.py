@@ -35,11 +35,14 @@ chunk holding one is skipped whole; NaNs arise only for invalid queries at
 
 What bounds the kernels: arithmetic. For D-dimensional points the function
 needs D + 2 products, D + 1 sums and a compare per visited (query, key)
-pair (10 operations for 3-D points; the kernels' other 3 products and sums
-multiply zero padding). The least time is that count over the published
-float32 rate off the tensor cores (67 TFLOP/s on an H100 SXM), which counts
-an FMA as two operations; the kernels issue no FMA, for bit-exactness, so
-they cannot reach it. See the source for the design.
+pair (10 operations for 3-D points). The least time is that count over the
+published float32 rate off the tensor cores (67 TFLOP/s on an H100 SXM),
+which counts an FMA as two operations; the kernels issue no FMA, for
+bit-exactness, so they cannot reach it. The fused kernel sums all 8 terms;
+the masked and compact kernels sum the D + 2 that carry data (``terms``,
+from the plan's point dimension; the same bits, see the source), take 4
+queries a thread and split their work across blocks, merged by an atomic
+lexicographic minimum, with no host sync. See the source for the design.
 """
 
 from __future__ import annotations
@@ -60,9 +63,12 @@ launch_counts: Dict[str, int] = {
     "nn1_masked": 0,
     "nn1_compact": 0,
 }
+# The launch parameters of the last masked / compact launch: rows a thread,
+# key splits a query block (masked) and blocks.
+kernel_design: Dict[str, Dict[str, int]] = {}
 
 _DPAD = 8  # augmented row width
-_BLOCK_Q = 128  # queries per CUDA block: query tiles are multiples of it
+_BLOCK_Q = 128  # threads per CUDA block: query tiles are multiples of it
 _PLAIN_BLOCK = 1 << 26  # (query, key) pairs per plain-version block (256 MB)
 _INT32_MAX = 2**31 - 1
 
@@ -209,8 +215,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "nn1_fused_launch": (_P, _P, _I, _I, _P, _P, _P),
-    "nn1_masked_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    "nn1_compact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "nn1_masked_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "nn1_compact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 
@@ -242,6 +248,33 @@ def _check_rows(name, qp, kp, tile_q, tile_m) -> Tuple[int, int]:
             f"multiples of tile_q={tile_q} / tile_m={tile_m}"
         )
     return qp.shape[0] // tile_q, kp.shape[0] // tile_m
+
+
+def _live_terms(dim: int) -> int:
+    """The distance terms the masked and compact kernels take for
+    ``dim``-D points: D + 2 where they have an instance (2-D, 3-D), else 8."""
+    return dim + 2 if dim + 2 in (4, 5) else _DPAD
+
+
+def _check_terms(name, terms) -> None:
+    if terms not in (4, 5, _DPAD):
+        raise ValueError(f"{name}: terms={terms}, wants 4, 5 or {_DPAD}")
+
+
+def _split_outputs(rows: int, device, counter: int):
+    """``dist``, ``idx`` and the kernels' 64-bit scratch (one word a row,
+    ``counter`` more behind it)."""
+    return (
+        torch.empty(rows, dtype=torch.float32, device=device),
+        torch.empty(rows, dtype=torch.int32, device=device),
+        torch.empty(rows + counter, dtype=torch.int64, device=device),
+    )
+
+
+def _record_design(name, design) -> None:
+    kernel_design[name] = dict(
+        rows_per_thread=design[0], splits=design[1], blocks=design[2]
+    )
 
 
 def _check_cuda(name, tile_q, *named) -> None:
@@ -279,22 +312,37 @@ def fused_rows(qp: torch.Tensor, kp: torch.Tensor) -> Tuple[torch.Tensor, torch.
 
 
 def masked_rows(
-    qp: torch.Tensor, kp: torch.Tensor, tile_mask: torch.Tensor, *, tile_q: int, tile_m: int
+    qp: torch.Tensor,
+    kp: torch.Tensor,
+    tile_mask: torch.Tensor,
+    *,
+    tile_q: int,
+    tile_m: int,
+    terms: int = _DPAD,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`fused_rows` over the (query tile, key chunk) pairs whose
-    ``tile_mask (n_qt, n_mt) int32`` entry is not 0."""
+    ``tile_mask (n_qt, n_mt) int32`` entry is not 0.
+
+    ``terms`` (4, 5 or 8) is the number of leading columns the kernel sums;
+    below 8 the columns past it must be +0 in both operands, as
+    :func:`_augment_queries` / :func:`_augment_keys` leave them for
+    ``terms - 2``-D points, and the result is then the 8-term one bit for
+    bit (the plain version always sums 8)."""
     name = "nn1_masked"
     n_qt, n_mt = _check_rows(name, qp, kp, tile_q, tile_m)
     native.check(name, tile_mask, "tile_mask", (torch.int32,), (n_qt, n_mt))
+    _check_terms(name, terms)
     if native.on_cpu(name, qp, kp, tile_mask):
         return masked_rows_plain(qp, kp, tile_mask, tile_q, tile_m)
     _check_cuda(name, tile_q, ("qp", qp), ("kp", kp), ("tile_mask", tile_mask))
-    dist = torch.empty(qp.shape[0], dtype=torch.float32, device=qp.device)
-    idx = torch.empty(qp.shape[0], dtype=torch.int32, device=qp.device)
+    dist, idx, best = _split_outputs(qp.shape[0], qp.device, 0)
+    design = (ctypes.c_int * 3)()
     _launch(
         name, qp.data_ptr(), kp.data_ptr(), tile_mask.data_ptr(), qp.shape[0],
-        n_mt, tile_q, tile_m, dist.data_ptr(), idx.data_ptr(),
+        n_mt, tile_q, tile_m, terms, best.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+        ctypes.addressof(design),
     )
+    _record_design(name, design)
     return dist, idx
 
 
@@ -307,28 +355,35 @@ def compact_rows(
     *,
     tile_q: int,
     tile_m: int,
+    terms: int = _DPAD,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`fused_rows` over a compacted pair list: entry s names query
     tile ``qt[s]`` and key chunk ``kt[s]``, and counts if ``flags[s] & 2``.
-    The list is sorted by ``qt`` (as :func:`_compact_list` builds it); a
-    query tile that no live entry names keeps ``(INVALID_DIST, 0)``."""
+    The live entries come first (as :func:`_compact_list` builds the list:
+    the CUDA kernel stops at the first dead entry); a query tile that no
+    live entry names keeps ``(INVALID_DIST, 0)``. ``terms`` as in
+    :func:`masked_rows`."""
     name = "nn1_compact"
     n_qt, n_mt = _check_rows(name, qp, kp, tile_q, tile_m)
     budget = qt.shape[0]
     for what, t in (("qt", qt), ("kt", kt), ("flags", flags)):
         native.check(name, t, what, (torch.int32,), (budget,))
+    _check_terms(name, terms)
     if native.on_cpu(name, qp, kp, qt, kt, flags):
         return compact_rows_plain(qp, kp, qt, kt, flags, tile_q, tile_m)
     _check_cuda(
         name, tile_q, ("qp", qp), ("kp", kp), ("qt", qt), ("kt", kt), ("flags", flags)
     )
-    dist = torch.empty(qp.shape[0], dtype=torch.float32, device=qp.device)
-    idx = torch.empty(qp.shape[0], dtype=torch.int32, device=qp.device)
+    if budget * (tile_q // _BLOCK_Q) >= _INT32_MAX:
+        raise ValueError(f"{name}: {budget} entries of {tile_q} rows are 2^31 work items or more")
+    dist, idx, best = _split_outputs(qp.shape[0], qp.device, 1)
+    design = (ctypes.c_int * 3)()
     _launch(
         name, qp.data_ptr(), kp.data_ptr(), qt.data_ptr(), kt.data_ptr(),
-        flags.data_ptr(), budget, qp.shape[0], tile_q, tile_m,
-        dist.data_ptr(), idx.data_ptr(),
+        flags.data_ptr(), budget, qp.shape[0], tile_q, tile_m, terms,
+        best.data_ptr(), dist.data_ptr(), idx.data_ptr(), ctypes.addressof(design),
     )
+    _record_design(name, design)
     return dist, idx
 
 
@@ -359,9 +414,9 @@ def nn1_fused(
     return dist, idx
 
 
-def _nn1_masked(qp, kp, tile_mask, *, tile_q: int = 1024, tile_m: int = 2048):
+def _nn1_masked(qp, kp, tile_mask, *, tile_q: int = 1024, tile_m: int = 2048, terms: int = _DPAD):
     """Port of ``_nn1_pallas_masked``: raw ``(n_qt, tile_q)`` results."""
-    dist, idx = masked_rows(qp, kp, tile_mask, tile_q=tile_q, tile_m=tile_m)
+    dist, idx = masked_rows(qp, kp, tile_mask, tile_q=tile_q, tile_m=tile_m, terms=terms)
     return dist.reshape(-1, tile_q), idx.reshape(-1, tile_q)
 
 
@@ -399,15 +454,19 @@ def _pair_list(ids: torch.Tensor, n_mt: int, budget: int):
     return qt, kt, flags
 
 
-def _nn1_compact(qp, kp, tile_mask, *, budget: int, tile_q: int = 1024, tile_m: int = 2048):
+def _nn1_compact(
+    qp, kp, tile_mask, *, budget: int, tile_q: int = 1024, tile_m: int = 2048, terms: int = _DPAD
+):
     """Port of ``_nn1_pallas_compact``: the compact kernel when at most
     ``budget`` pairs survive, else the masked kernel (the JAX ``lax.cond``
     becomes a host branch on the survivor count). Every row of
     ``tile_mask`` must allow at least one pair."""
     lst = _compact_list(tile_mask, budget)
     if lst is None:
-        return _nn1_masked(qp, kp, tile_mask.to(torch.int32), tile_q=tile_q, tile_m=tile_m)
-    dist, idx = compact_rows(qp, kp, *lst, tile_q=tile_q, tile_m=tile_m)
+        return _nn1_masked(
+            qp, kp, tile_mask.to(torch.int32), tile_q=tile_q, tile_m=tile_m, terms=terms
+        )
+    dist, idx = compact_rows(qp, kp, *lst, tile_q=tile_q, tile_m=tile_m, terms=terms)
     return dist.reshape(-1, tile_q), idx.reshape(-1, tile_q)
 
 
@@ -434,6 +493,7 @@ class NN1PrunePlan(NamedTuple):
     qvs: torch.Tensor  # (Q,) query validity in sorted order
     tile_q: int
     tile_m: int
+    dim: int  # point dimension: the kernels sum dim + 2 terms (_live_terms)
 
 
 def _morton_sort(points, valid, origin, cell):
@@ -542,6 +602,7 @@ def make_nn1_prune_plan(
         qvs=qv[qperm.long()],
         tile_q=tile_q,
         tile_m=tile_m,
+        dim=keys.shape[1],
     )
 
 
@@ -573,7 +634,8 @@ def nn1_pruned_planned(
     qs, within, budget = prune_mask(queries, plan)
     qp = _augment_queries(qs, plan.tile_q)
     dist, idx = _nn1_compact(
-        qp, plan.kp, within, budget=budget, tile_q=plan.tile_q, tile_m=plan.tile_m
+        qp, plan.kp, within, budget=budget, tile_q=plan.tile_q, tile_m=plan.tile_m,
+        terms=_live_terms(plan.dim),
     )
     dist = torch.clamp(dist.reshape(-1)[:qn], min=0.0)
     idx = idx.reshape(-1)[:qn]

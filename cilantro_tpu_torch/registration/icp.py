@@ -173,7 +173,7 @@ def icp(
         ncorr = corr.count().to(torch.int32)
     return ICPResult(
         transform=tf,
-        iterations=torch.tensor(it, dtype=torch.int32),
+        iterations=torch.tensor(it, dtype=torch.int32, device=tf.linear.device),
         delta_norm=dn,
         converged=dn < convergence_tol,
         num_correspondences=ncorr,
@@ -377,7 +377,7 @@ def icp_projective_packed(
         ncorr = torch.sum(w).to(torch.int32)
     return ICPResult(
         transform=tf,
-        iterations=torch.tensor(it, dtype=torch.int32),
+        iterations=torch.tensor(it, dtype=torch.int32, device=tf.linear.device),
         delta_norm=dn,
         converged=dn < convergence_tol,
         num_correspondences=ncorr,

@@ -134,3 +134,139 @@ def test_entry_runs_the_fused_kernel(cuda):
     lin_c, tr_c = fwd_cpu(*args_cpu)
     assert torch.allclose(lin.cpu(), lin_c, atol=1e-3)
     assert torch.allclose(tr.cpu(), tr_c, atol=1e-3)
+
+
+def _cloud_operands(dev, seed, dim, qn, mn, tq, tm, density=0.4):
+    """Augmented ``dim``-D rows with exact query copies, repeated keys, 10%
+    masked keys and -0.0 coordinates, and a tile mask that keeps at least
+    one chunk per query tile."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-0.5, 0.5, (qn, dim)).astype(np.float32)
+    k = rng.uniform(-0.5, 0.5, (mn, dim)).astype(np.float32)
+    k[:50] = q[:50]
+    k[300:400] = k[:100]
+    q[50:60] = -0.0
+    k[400:410] = -0.0
+    kv = torch.from_numpy(rng.random(mn) < 0.9)
+    qp, kp = nn._augment(torch.from_numpy(q), torch.from_numpy(k), kv, tq, tm)
+    n_qt, n_mt = qp.shape[0] // tq, kp.shape[0] // tm
+    mask = rng.random((n_qt, n_mt)) < density
+    mask[np.arange(n_qt), rng.integers(0, n_mt, n_qt)] = True
+    return qp.to(dev), kp.to(dev), torch.from_numpy(mask).to(dev)
+
+
+def _both_routes(qp, kp, mask, tq, tm, terms):
+    """The masked kernel and the compact kernel (through its wrapper) on one
+    mask, each against the plain version."""
+    m32 = mask.to(torch.int32)
+    want = nn.masked_rows_plain(qp, kp, m32, tq, tm)
+    got = _launched(
+        "nn1_masked", lambda: nn.masked_rows(qp, kp, m32, tile_q=tq, tile_m=tm, terms=terms)
+    )
+    _same(got, want)
+    d, i = _launched(
+        "nn1_compact",
+        lambda: nn._nn1_compact(qp, kp, mask, budget=mask.numel(), tile_q=tq, tile_m=tm, terms=terms),
+    )
+    _same((d.reshape(-1), i.reshape(-1)), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("tq", [128, 256, 384, 512])
+def test_live_terms_and_block_fallbacks_match_plain(cuda, dim, tq):
+    """D + 2 terms at every rows-a-thread choice: 4 rows at tile_q 512, 2 at
+    256, 1 at 128 and 384."""
+    qp, kp, mask = _cloud_operands(cuda, 10 + tq + dim, dim, 1700, 2600, tq, 256)
+    _both_routes(qp, kp, mask, tq, 256, nn._live_terms(dim))
+    assert nn.kernel_design["nn1_compact"]["rows_per_thread"] == {128: 1, 256: 2, 384: 1, 512: 4}[tq]
+
+
+@pytest.mark.cuda
+def test_long_run_beside_short_runs_matches_plain(cuda):
+    """One query tile visits every key chunk, the others one each: the
+    masked kernel's key splits and the compact kernel's items share the
+    long tile's rows."""
+    qp, kp, mask = _cloud_operands(cuda, 21, 3, 2048, 8192, 512, 256, density=0.0)
+    mask[1] = True
+    _both_routes(qp, kp, mask, 512, 256, 5)
+    assert nn.kernel_design["nn1_masked"]["splits"] > 1
+
+
+@pytest.mark.cuda
+def test_over_budget_route_with_live_terms_matches_plain(cuda):
+    qp, kp, mask = _cloud_operands(cuda, 22, 3, 1500, 3000, 256, 256)
+    want = nn.masked_rows_plain(qp, kp, mask.to(torch.int32), 256, 256)
+    d, i = _launched(
+        "nn1_masked",
+        lambda: nn._nn1_compact(qp, kp, mask, budget=int(mask.sum()) - 1, tile_q=256, tile_m=256, terms=5),
+    )
+    _same((d.reshape(-1), i.reshape(-1)), want)
+
+
+@pytest.mark.cuda
+def test_padding_query_block_matches_plain(cuda):
+    """The last query tile of 384 rows holds 130 real rows, so its third
+    block of 128 rows is all padding (zeros: distance 0 to every key, the
+    first visited key wins)."""
+    qp, kp, mask = _cloud_operands(cuda, 23, 3, 384 + 130, 2000, 384, 256)
+    assert qp.shape[0] == 768 and not qp[640:].any()
+    _both_routes(qp, kp, mask, 384, 256, 5)
+    assert nn.kernel_design["nn1_compact"]["rows_per_thread"] == 1
+
+
+@pytest.mark.cuda
+def test_launches_do_not_sync(cuda):
+    qp, kp, mask = _cloud_operands(cuda, 24, 3, 2000, 3000, 512, 256)
+    m32 = mask.to(torch.int32)
+    qt, kt, fl = nn._compact_list(mask, mask.numel())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        masked = nn.masked_rows(qp, kp, m32, tile_q=512, tile_m=256, terms=5)
+        compact = nn.compact_rows(qp, kp, qt, kt, fl, tile_q=512, tile_m=256, terms=5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = nn.masked_rows_plain(qp, kp, m32, 512, 256)
+    _same(masked, want)
+    _same(compact, want)
+
+
+@pytest.mark.cuda
+def test_planned_2d_pass_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(25)
+    k = rng.uniform(-0.3, 0.3, (6000, 2)).astype(np.float32)
+    q = (k[::2] + rng.normal(0, 3e-3, (3000, 2))).astype(np.float32)
+    outs = []
+    nn.kernel_design.clear()
+    for dev in (cuda, torch.device("cpu")):
+        plan = nn.make_nn1_prune_plan(
+            torch.from_numpy(k).to(dev), 0.02, torch.from_numpy(q).to(dev), tile_q=256, tile_m=TM
+        )
+        outs.append(nn.nn1_pruned_planned(torch.from_numpy(q).to(dev), plan))
+    _same(outs[0], outs[1])
+    # The pass took the compact kernel or, over its budget, the masked one.
+    (design,) = nn.kernel_design.values()
+    assert design["rows_per_thread"] == 2
+
+
+@pytest.mark.cuda
+def test_entry_iterations_lie_on_the_card(cuda):
+    from unittest import mock
+
+    import cilantro_tpu_torch.entry as entry_mod
+
+    results = []
+    real_icp = entry_mod.icp
+
+    def keep(*args, **kwargs):
+        results.append(real_icp(*args, **kwargs))
+        return results[-1]
+
+    fwd, args = entry_mod.entry()
+    with mock.patch.object(entry_mod, "icp", keep):
+        fwd(*args)
+    assert results, "entry() did not call icp"
+    res = results[-1]
+    assert res.iterations.device == res.transform.linear.device
+    assert res.iterations.device.type == "cuda"
