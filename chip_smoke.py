@@ -14,21 +14,28 @@ in order; any failure raises and exits non-zero without the final line:
    selects), and time kernel and plain version (CUDA events, median of 25
    runs after warm-up, launches queued behind a sleep kernel so that host
    enqueue time is not counted) beside the byte bound at 3.35 TB/s;
+   ``splat_argmin2`` with its design record (the tile a block elects) and
+   the previous design's time on the case;
 3. run splat fusion, the headline pipeline, through its entry point on 16
    synthetic 640×480 frames (radius 4, margin 16): launch counts, ms/frame,
-   frames/s, ATE against ground truth (< 2e-3 m); then a per-stage time
-   split and a profiler window (informational);
+   frames/s, ATE against ground truth (< 2e-3 m); ``splat_argmin2`` on the
+   last frame's own inputs (recorded on the way), bit for bit against its
+   plain version and timed as in phase 2 beside the previous design's
+   time; then a per-stage time split and a profiler window
+   (informational);
 4. run the first 4 frames through the same entry point on the CPU (the
    plain versions) and require the poses to agree within 1e-4 m / 1e-4 rad;
 5. hold each nn1 kernel against its plain version on the card, bit for bit:
-   the fused kernel at 4096 × 4096 (the ``entry()`` pair) and 32768 × 32768
-   (the coarse ICP level); the compact and masked kernels (D + 2 terms) at
+   the fused kernel (D + 2 terms, rows padded as ``nn1_fused`` pads them)
+   at 4096 × 4096 (the ``entry()`` pair) and 32768 × 32768 (the coarse ICP
+   level), each with its design record and the previous design's time;
+   the compact and masked kernels (D + 2 terms) at
    the tile pairs of the first full-resolution pass of the 640×480 pair,
    with the pair list's live chunks per query tile (min, median, max) and
    the previous design's time, then the same clouds in 2-D (x, y), then the
    masked kernel at the first pass of phase 7 (0.5 m gate: more survivors
    than the budget); the compact wrapper with a budget one short of the
-   survivors (its masked fallback); both launches under
+   survivors (its masked fallback); the three launches under
    ``torch.cuda.set_sync_debug_mode("error")``; each case timed as in phase
    2 beside its arithmetic bound (D + 2 products, D + 1 sums and a compare
    per visited pair of D-dimensional points, at 67 TFLOP/s; plain versions
@@ -104,8 +111,8 @@ in order; any failure raises and exits non-zero without the final line:
     kernel path) and on the CPU (the tiled scan): |cos| ≥ 0.999 on at
     least 99% of the points valid in both;
 20. ``scale2``, the wide-row probe's copy kernel, once on the (CAP/8, 128)
-    pool view, bit for bit against ``2.0 * x``, beside ``torch.mul`` and
-    its byte bound.
+    pool view, bit for bit against ``2.0 * x``, beside ``torch.mul`` (five
+    alternating pairs, the medians) and its byte bound.
 
 Each kernel's launch count in the kernels line comes from the path that
 runs it (counts set to 0 just before that path and read just after):
@@ -224,18 +231,12 @@ def kernel_checks(splat, dev):
     ))
 
     # splat_argmin2: one stream, two layers, keys in [0.5, 3) m with ties.
-    key = torch.from_numpy((0.5 + 2.5 * rng.random((1, LAYERS, hp, wp))).astype(np.float32))
-    key[torch.from_numpy(rng.random(key.shape) < 0.1)] = 1.0
-    key = key.to(dev)
-    aoff = codes((1, LAYERS, hp, wp), w2 * w2)
-    key = torch.where(aoff >= 0, key, float("inf"))
-    n_ok = int((aoff >= 0).sum())
-    nbytes = aoff.numel() * 4 + n_ok * 4 + 4 * HM * WM * 4
+    key, aoff = argmin2_tie_case(rng, dev)
     records.append(dict(
         name="splat_argmin2", replaces="cilantro_tpu/slam/splat.py:107",
         kernel=lambda: splat.splat_argmin2(key, aoff, radius=r),
         plain=lambda: splat.splat_argmin2_plain(key, aoff, r),
-        nbytes=nbytes,
+        nbytes=argmin2_bytes(aoff), case="tie-heavy random",
     ))
 
     # flow_select_rows: winner and runner-up codes of one 8-channel map.
@@ -268,9 +269,86 @@ def kernel_checks(splat, dev):
             bound_ms=bound_ms, bound_by="bytes", library_ms=None,
             bytes=rec["nbytes"],
         )
-        emit(phase="kernel_vs_plain", tolerance="bit-exact", **entry)
+        extra = {}
+        if "case" in rec:
+            extra = dict(case=rec["case"], design=dict(splat.kernel_design[rec["name"]]),
+                         previous_design_ms=PREVIOUS_SPLAT_MS[(rec["name"], rec["case"])])
+        emit(phase="kernel_vs_plain", tolerance="bit-exact", **entry, **extra)
         out.append(entry)
     return out
+
+
+# Kernel ms of the previous splat_argmin2 (one thread per target, a
+# dependent check of each of its 162 candidate sources), NVIDIA H100 80GB
+# HBM3 at 700 W, final run of PR 6: phase 2's case (CUDA events) and the
+# path's frames (the profile phase's mean over 6 frames).
+PREVIOUS_SPLAT_MS = {
+    ("splat_argmin2", "tie-heavy random"): 0.05951999872922897,
+    ("splat_argmin2", "splat path frame"): 0.048864666666666993,
+}
+
+
+def argmin2_tie_case(rng, dev):
+    """Padded keys and offset codes of one stream, two layers at the model
+    grid: keys in [0.5, 3) m with 10% at 1.0 (ties), codes uniform in the
+    window with ~20% -1 (keys +inf there)."""
+    r = RADIUS
+    w2 = 2 * r + 1
+    shape = (1, LAYERS, HM + 2 * r, WM + 2 * r)
+    key = torch.from_numpy((0.5 + 2.5 * rng.random(shape)).astype(np.float32))
+    key[torch.from_numpy(rng.random(shape) < 0.1)] = 1.0
+    c = rng.integers(0, w2 * w2, size=shape).astype(np.int32)
+    c[rng.random(shape) < 0.2] = -1
+    aoff = torch.from_numpy(c).to(dev)
+    return torch.where(aoff >= 0, key.to(dev), float("inf")), aoff
+
+
+def argmin2_bytes(off) -> int:
+    """splat_argmin2's bytes: every code read once, the keys of the sources
+    with a code in the window once, the four (B, H, W) outputs written once."""
+    r = RADIUS
+    b, _, hp, wp = off.shape
+    n_ok = int(((off >= 0) & (off < (2 * r + 1) ** 2)).sum())
+    return off.numel() * 4 + n_ok * 4 + 4 * b * (hp - 2 * r) * (wp - 2 * r) * 4
+
+
+@contextlib.contextmanager
+def argmin2_recorded(sf, kept: dict):
+    """A context in which splat fusion's ``splat_argmin2`` calls keep the
+    last call's inputs in ``kept`` (the tensors are made anew each frame
+    and never written after the call)."""
+    from unittest import mock
+
+    real = sf.splat_argmin2
+
+    def recording(key, off, *, radius):
+        kept.update(key=key, off=off, radius=radius)
+        return real(key, off, radius=radius)
+
+    with mock.patch.object(sf, "splat_argmin2", recording):
+        yield
+
+
+def argmin2_path_frame(splat, kept):
+    """Phase 3b: the argmin2 kernel against its plain version, bit for bit,
+    on the last frame of the main path, timed as in phase 2."""
+    key, off, r = kept["key"], kept["off"], kept["radius"]
+    k_out = splat.splat_argmin2(key, off, radius=r)
+    p_out = splat.splat_argmin2_plain(key, off, r)
+    torch.cuda.synchronize()
+    assert_same_bits("splat_argmin2 on a path frame", k_out, p_out)
+    nbytes = argmin2_bytes(off)
+    ms = device_ms(lambda: splat.splat_argmin2(key, off, radius=r))
+    case = "splat path frame"
+    emit(phase="kernel_vs_plain", tolerance="bit-exact", name="splat_argmin2", case=case,
+         max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)), ms=ms,
+         plain_ms=device_ms(lambda: splat.splat_argmin2_plain(key, off, r)),
+         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
+         sources_in_window=int(((off >= 0) & (off < (2 * r + 1) ** 2)).sum()),
+         targets_with_a_runner_up=int((p_out[3] >= 0).sum()),
+         design=dict(splat.kernel_design["splat_argmin2"]),
+         previous_design_ms=PREVIOUS_SPLAT_MS[("splat_argmin2", case)])
+    return ms
 
 
 def rot_angle(a: np.ndarray, b: np.ndarray) -> float:
@@ -414,12 +492,17 @@ def first_pass(nn, src, dst, mcd):
     return qp, plan.kp, within, budget, plan.tile_q, plan.tile_m
 
 
-# Kernel ms of the previous compact and masked nn1 kernels (one thread per
-# query, 8 terms, each block walking its query tile's whole run) at phase
-# 5's first-pass list, NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6 table.
+# Kernel ms of the previous nn1 kernels (one thread per query, 8 terms;
+# the compact and masked ones with each block walking its query tile's
+# whole run, the fused one with 128 queries a block over every key), NVIDIA
+# H100 80GB HBM3 at 700 W: the compact and masked ones at phase 5's
+# first-pass list (PERF.md §6 table), the fused one at its two cases (final
+# run of PR 6).
 PREVIOUS_NN1_MS = {
     ("nn1_compact", "first pass"): 7.406591892242432,
     ("nn1_masked", "first pass"): 7.277247905731201,
+    ("nn1_fused", "4096x4096"): 0.164000004529953,
+    ("nn1_fused", "32768x32768"): 1.4167360067367554,
 }
 
 
@@ -503,11 +586,14 @@ def nn1_kernel_checks(nn, pair, coarse, entry_inputs):
         ("4096x4096", (entry_inputs[0], entry_inputs[1], None)),
         ("32768x32768", (coarse[0][0], coarse[1][0], coarse[1][2])),
     ):
-        qp, kp = nn._augment(q, kk, kv, nn._BLOCK_Q, 1)  # as nn1_fused pads them
+        # As nn1_fused pads and sums them.
+        qp, kp = nn._augment(q, kk, kv, nn._fused_rows_multiple(q.shape[0]), 1)
+        terms = nn._live_terms(q.shape[1])
         entry = record(
-            "nn1_fused", label, lambda: nn.fused_rows(qp, kp), lambda: nn.fused_rows_plain(qp, kp),
+            "nn1_fused", label, lambda: nn.fused_rows(qp, kp, terms=terms),
+            lambda: nn.fused_rows_plain(qp, kp),
             q.shape[0] * kk.shape[0], (qp.numel() + kp.numel()) * 4 + qp.shape[0] * 8,
-            library=lambda: torch.cdist(q, kk).min(dim=1),
+            library=lambda: torch.cdist(q, kk).min(dim=1), case=label, terms=terms,
             library_is="torch.cdist + min over the same clouds (two calls, a yardstick; the port never calls it)",
         )
         out.setdefault("nn1_fused", entry)
@@ -536,17 +622,20 @@ def nn1_kernel_checks(nn, pair, coarse, entry_inputs):
                      nn.masked_rows_plain(qp, kp, within.to(torch.int32), tq, tm))
     emit(phase="nn1_compact_fallback", budget=survivors - 1, survivors=survivors,
          launches=routed, tolerance="bit-exact", max_abs_err=0.0)
-    # Neither launch syncs with the host.
+    # No launch syncs with the host.
     qt, kt, fl = nn._compact_list(within, within.numel())
     mask = within.to(torch.int32)
+    fq, fk = nn._augment(entry_inputs[0], entry_inputs[1], None,
+                         nn._fused_rows_multiple(entry_inputs[0].shape[0]), 1)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         nn.compact_rows(qp, kp, qt, kt, fl, tile_q=tq, tile_m=tm, terms=terms)
         nn.masked_rows(qp, kp, mask, tile_q=tq, tile_m=tm, terms=terms)
+        nn.fused_rows(fq, fk, terms=5)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    emit(phase="nn1_no_sync", checked=["nn1_compact", "nn1_masked"])
+    emit(phase="nn1_no_sync", checked=["nn1_compact", "nn1_masked", "nn1_fused"])
     return out
 
 
@@ -1390,16 +1479,28 @@ def probe_kernel_check():
     want = probe.scale2_plain(x)
     assert_same_bits("scale2", [got], [want])
     nbytes = 2 * x.numel() * 4
+    # Kernel and torch.mul in five alternating pairs (kernel first, then mul
+    # first): is the kernel slower than the one PyTorch call?
+    kernel, library = lambda: probe.scale2(x), lambda: torch.mul(x, 2.0)
+    pairs = []
+    for i in range(5):
+        first, second = (kernel, library) if i % 2 == 0 else (library, kernel)
+        a, b = device_ms(first), device_ms(second)
+        pairs.append((a, b) if i % 2 == 0 else (b, a))
+    ms = statistics.median(p[0] for p in pairs)
+    library_ms = statistics.median(p[1] for p in pairs)
     entry = dict(
         name="scale2", route="cuda", source="cilantro_tpu_torch/csrc/probe_kernels.cu",
         replaces=REPLACES["scale2"], launches=launches, max_abs_err=max_abs_err(got, want),
-        ms=device_ms(lambda: probe.scale2(x)), plain_ms=device_ms(lambda: probe.scale2_plain(x)),
+        ms=ms, plain_ms=device_ms(lambda: probe.scale2_plain(x)),
         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=device_ms(lambda: torch.mul(x, 2.0)), bytes=nbytes,
+        library_ms=library_ms, bytes=nbytes,
         path="wide_row_probe copy, one launch",
     )
     emit(phase="probe_kernel_vs_plain", tolerance="bit-exact", shape=list(x.shape),
-         library_is="torch.mul(x, 2.0) (a yardstick)", **entry)
+         library_is="torch.mul(x, 2.0) (a yardstick)",
+         alternating_pairs_kernel_library_ms=pairs,
+         kernel_slower_in_pairs=sum(a > b for a, b in pairs), **entry)
     return entry
 
 
@@ -1439,7 +1540,9 @@ def main() -> int:
     emit(phase="input", frames=FRAMES, height=H, width=W, render_s=time.perf_counter() - t0)
 
     splat.reset_launch_counts()
-    smap, poses, spf, per_frame = sf.run_splat_sequence(depths, k, cfg=cfg, device="cuda")
+    frame_inputs = {}
+    with argmin2_recorded(sf, frame_inputs):
+        smap, poses, spf, per_frame = sf.run_splat_sequence(depths, k, cfg=cfg, device="cuda")
     launches = dict(splat.launch_counts)
     ate = ate_rmse(poses, gt, device="cuda")
     pts, nrm, conf = sf.extract_cloud(smap)
@@ -1466,6 +1569,7 @@ def main() -> int:
         ms_per_frame_repeat=spf2 * 1e3, frames_per_s_repeat=1.0 / spf2,
         ate_m=ate, live_surfels=len(pts), card=card,
     )
+    path_frame_ms = argmin2_path_frame(splat, frame_inputs)
     emit(phase="stage_split_ms_per_frame", card=card, **stage_split(sf, depths, k, cfg, dev))
     try:
         emit(phase="profile", card=card, **profile_window(sf, depths, k, cfg, dev, spf2 * 1e3))
@@ -1487,6 +1591,8 @@ def main() -> int:
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["path"] = "splat fusion, 16 frames"
+        if entry["name"] == "splat_argmin2":
+            entry["path_frame_ms"] = path_frame_ms
 
     # 5. nn1 kernels vs plain on the card.
     from cilantro_tpu_torch.entry import _toy_pair

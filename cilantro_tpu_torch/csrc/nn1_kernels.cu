@@ -35,11 +35,7 @@
 // (float32, no tensor cores, no TF32). The bytes are small: a block stages
 // each key chunk through shared memory once for all its queries.
 //
-// The fused kernel: one thread per query, 128 queries per block, keys staged
-// 256 at a time as float4 pairs and read by every thread as a broadcast; it
-// sums all 8 terms (aug_dot / fold_keys).
-//
-// The masked and compact kernels (the split kernels below):
+// All three share one design (the split kernels below):
 //
 // 1. D + 2 terms. The distance is templated on NT, the count of data
 //    columns: 4 for 2-D points, 5 for 3-D, 8 for any row. The wrappers pass
@@ -53,14 +49,15 @@
 //    padding keys have k^[D] = 0), so all D + 2 products are taken, with
 //    __fmul_rn / __fadd_rn left to right as before.
 // 2. R queries a thread (4, or 2 / 1 when a block of 128 R rows would not
-//    fit in one query tile; 4 measured fastest on the H100, PERF.md §6):
-//    each staged key is read
-//    from shared memory once for R pairs, staged as a float4 of columns 0-3
+//    fit in one query tile; 4 measured fastest on the H100, PERF.md §6; the
+//    fused kernel's rows are one tile, which nn1_fused pads to 128, 256 or
+//    a multiple of 512 rows): each staged key is read from shared memory
+//    once for R pairs, staged as a float4 of columns 0-3
 //    and a float (or a second float4) for the rest, so a key costs one or
 //    two broadcast loads. kChains / R keys are in flight a thread: their
 //    R distances each are independent chains, compared in key order after.
-//    The compiled loop of the 3-D, R = 4 instance (its SASS, counted by
-//    tools/nn1_variants.py) issues 205 instructions for 4 keys x 4
+//    The compiled loop of the 3-D, R = 4 masked and compact instances (their
+//    SASS, counted by tools/nn1_variants.py) issues 205 instructions for 4 keys x 4
 //    queries, 12.8 a pair: 5 FMUL, 4 FADD, one FSETP and 1.9 SEL a pair,
 //    5 LDS.128 for the 4 keys (the compiler joins their 4 column-4 floats
 //    into one), the rest loop control; 2-D: 170 for 16 pairs, 10.6 a pair;
@@ -77,6 +74,13 @@
 //    needs no starting pattern; a plain read first skips the atomic when the
 //    scratch already holds at least the part's value. A small kernel unpacks
 //    the scratch to (dist, idx), 0 to (3e38, 0).
+//    - Fused: every key is live, so contiguous key ranges balance exactly.
+//      Blocks (query sub-block, split s) fold the keys [s * span, (s + 1) *
+//      span), the last split the tail (the keys are not padded). The split
+//      count aims at kFusedWaves times the resident blocks of the card over
+//      the query blocks; span is a multiple of kFusedMinKeys (128: one key
+//      a thread of the block stages them in one pass), so that no split is
+//      all staging.
 //    - Compact: a persistent grid (resident blocks of the card) takes items
 //      (list entry, query sub-block) from a counter, each one key chunk for
 //      128 R rows, so every item is the same work and no long run starts
@@ -101,80 +105,20 @@
 
 namespace {
 
-constexpr int kDim = 8;
 constexpr int kThreads = 128;  // threads per block
-constexpr int kStage = 256;    // keys staged in shared memory at a time
 constexpr float kInvalid = 3.0e38f;
 constexpr unsigned kAll = 0xffffffffu;
 
-__device__ __forceinline__ float aug_dot(const float (&q)[kDim], float4 a,
-                                         float4 b) {
-  float acc = __fmul_rn(q[0], a.x);
-  acc = __fadd_rn(acc, __fmul_rn(q[1], a.y));
-  acc = __fadd_rn(acc, __fmul_rn(q[2], a.z));
-  acc = __fadd_rn(acc, __fmul_rn(q[3], a.w));
-  acc = __fadd_rn(acc, __fmul_rn(q[4], b.x));
-  acc = __fadd_rn(acc, __fmul_rn(q[5], b.y));
-  acc = __fadd_rn(acc, __fmul_rn(q[6], b.z));
-  acc = __fadd_rn(acc, __fmul_rn(q[7], b.w));
-  return acc;
-}
-
-__device__ __forceinline__ void load_query(const float* __restrict__ qp,
-                                           int row, float (&q)[kDim]) {
-  const float4* src = reinterpret_cast<const float4*>(qp) + 2 * (size_t)row;
-  const float4 a = src[0];
-  const float4 b = src[1];
-  q[0] = a.x; q[1] = a.y; q[2] = a.z; q[3] = a.w;
-  q[4] = b.x; q[5] = b.y; q[6] = b.z; q[7] = b.w;
-}
-
-// Fold keys [k0, k0 + len) into (bd, bi) in ascending order. Every thread
-// of the block calls it with the same k0 and len (it synchronises).
-__device__ void fold_keys(const float* __restrict__ kp, int k0, int len,
-                          const float (&q)[kDim], float& bd, int& bi,
-                          float4* stage) {
-  const float4* src = reinterpret_cast<const float4*>(kp) + 2 * (size_t)k0;
-  for (int s0 = 0; s0 < len; s0 += kStage) {
-    const int n = min(kStage, len - s0);
-    __syncthreads();  // the previous stage has been read by every thread
-    for (int t = threadIdx.x; t < 2 * n; t += blockDim.x) {
-      stage[t] = src[2 * (size_t)s0 + t];
-    }
-    __syncthreads();
-    for (int m = 0; m < n; ++m) {
-      const float d = aug_dot(q, stage[2 * m], stage[2 * m + 1]);
-      if (d < bd) {
-        bd = d;
-        bi = k0 + s0 + m;
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-nn1_fused_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
-                 int n_keys, float* __restrict__ out_d,
-                 int32_t* __restrict__ out_i) {
-  __shared__ float4 stage[2 * kStage];
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  float q[kDim];
-  load_query(qp, row, q);
-  float bd = kInvalid;
-  int bi = 0;
-  fold_keys(kp, 0, n_keys, q, bd, bi, stage);
-  out_d[row] = bd;
-  out_i[row] = bi;
-}
-
 // ---------------------------------------------------------------------------
-// The masked and compact kernels: NT = D + 2 terms, R queries a thread and
-// split work merged by a lexicographic minimum (see the header).
+// The split kernels: NT = D + 2 terms, R queries a thread and split work
+// merged by a lexicographic minimum (see the header).
 // ---------------------------------------------------------------------------
 
 constexpr int kSplitStage = 512;  // keys staged in shared memory at a time
 constexpr int kChains = 16;       // independent distances in flight a thread
 constexpr int kWaves = 16;        // masked kernel: blocks per resident slot
+constexpr int kFusedWaves = 4;    // fused kernel: blocks per resident slot, at least
+constexpr int kFusedMinKeys = kThreads;  // fused kernel: the least keys a split
 
 // The NT live columns of kSplitStage staged keys: columns 0-3 as one float4,
 // the rest as one float (NT = 5) or one more float4 (NT = 8), so that a
@@ -340,6 +284,21 @@ __device__ __forceinline__ void merge_rows(const Rows<NT, R>& w, int row0,
   }
 }
 
+// Block (x, s) takes kThreads * R query rows and folds the keys [s * span,
+// min(n_keys, (s + 1) * span)).
+template <int NT, int R>
+__global__ void __launch_bounds__(kThreads)
+nn1_fused_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
+                 int n_keys, int span, unsigned long long* __restrict__ best) {
+  __shared__ Stage<NT> st;
+  const int row0 = blockIdx.x * (kThreads * R);
+  const int k0 = blockIdx.y * span;
+  Rows<NT, R> w;
+  w.load(qp, row0);
+  fold_chunk<NT, R>(kp, k0, min(span, n_keys - k0), w, st);
+  merge_rows<NT, R>(w, row0, best);
+}
+
 // #{r in [0, rank) : r = s (mod splits)}
 __device__ __forceinline__ int taken_before(int rank, int s, int splits) {
   return (rank + splits - 1 - s) / splits;
@@ -447,6 +406,7 @@ struct SplitArgs {
   const int32_t* flags;
   int budget;
   int n_queries;
+  int n_keys;  // fused
   int n_mt;
   int tile_q;
   int tile_m;
@@ -461,6 +421,24 @@ int resident_blocks(const void* kernel) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   return max(1, sms * per_sm);
+}
+
+template <int NT, int R>
+void launch_fused(SplitArgs& a) {
+  const int q_blocks = a.n_queries / (kThreads * R);
+  const int slots = resident_blocks(reinterpret_cast<const void*>(nn1_fused_kernel<NT, R>));
+  const int most = min(max(1, (a.n_keys + kFusedMinKeys - 1) / kFusedMinKeys), 65535);
+  const int want = (kFusedWaves * slots + q_blocks - 1) / q_blocks;
+  int span = (a.n_keys + min(want, most) - 1) / min(want, most);
+  span = max(kFusedMinKeys, (span + kFusedMinKeys - 1) / kFusedMinKeys * kFusedMinKeys);
+  const int splits = max(1, (a.n_keys + span - 1) / span);
+  nn1_fused_kernel<NT, R><<<dim3(q_blocks, splits), kThreads, 0, a.stream>>>(
+      a.qp, a.kp, a.n_keys, span, a.best);
+  if (a.design) {
+    a.design[0] = R;
+    a.design[1] = splits;
+    a.design[2] = q_blocks * splits;
+  }
 }
 
 template <int NT, int R>
@@ -501,28 +479,42 @@ int rows_per_thread(int tile_q) {
   return 1;
 }
 
+enum Kind { kFused, kMasked, kCompact };
+
+template <int NT, int R>
+void launch_kind(Kind kind, SplitArgs& a) {
+  switch (kind) {
+    case kFused: launch_fused<NT, R>(a); break;
+    case kMasked: launch_masked<NT, R>(a); break;
+    default: launch_compact<NT, R>(a); break;
+  }
+}
+
 template <int NT>
-void launch_by_rows(bool compact, int rows, SplitArgs& a) {
+void launch_by_rows(Kind kind, int rows, SplitArgs& a) {
   switch (rows) {
-    case 4: compact ? launch_compact<NT, 4>(a) : launch_masked<NT, 4>(a); break;
-    case 2: compact ? launch_compact<NT, 2>(a) : launch_masked<NT, 2>(a); break;
-    default: compact ? launch_compact<NT, 1>(a) : launch_masked<NT, 1>(a); break;
+    case 4: launch_kind<NT, 4>(kind, a); break;
+    case 2: launch_kind<NT, 2>(kind, a); break;
+    default: launch_kind<NT, 1>(kind, a); break;
   }
 }
 
 // Clear the scratch (and the compact kernel's item counter behind it), run
-// the split kernel, unpack: the first CUDA error of the three steps.
-int launch_split(bool compact, int terms, SplitArgs& a, float* out_d,
+// the split kernel, unpack: the first CUDA error of the three steps. The
+// fused kernel's query rows are one tile.
+int launch_split(Kind kind, int terms, SplitArgs& a, float* out_d,
                  int32_t* out_i) {
   if (terms != 4 && terms != 5 && terms != 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.n_queries == 0) return 0;
+  const bool counter = kind == kCompact;
   cudaError_t err = cudaMemsetAsync(
-      a.best, 0, sizeof(unsigned long long) * (a.n_queries + (compact ? 1 : 0)), a.stream);
+      a.best, 0, sizeof(unsigned long long) * (a.n_queries + (counter ? 1 : 0)), a.stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = rows_per_thread(a.tile_q);
+  const int rows = rows_per_thread(kind == kFused ? a.n_queries : a.tile_q);
   switch (terms) {
-    case 4: launch_by_rows<4>(compact, rows, a); break;
-    case 5: launch_by_rows<5>(compact, rows, a); break;
-    default: launch_by_rows<8>(compact, rows, a); break;
+    case 4: launch_by_rows<4>(kind, rows, a); break;
+    case 5: launch_by_rows<5>(kind, rows, a); break;
+    default: launch_by_rows<8>(kind, rows, a); break;
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -535,14 +527,22 @@ int launch_split(bool compact, int terms, SplitArgs& a, float* out_d,
 
 extern "C" {
 
-// n_queries is a multiple of 128 (the wrappers check it).
+// n_queries is a multiple of 128 (the wrappers check it). best: n_queries
+// 64-bit words of scratch; design: null, or 3 ints for the rows a thread,
+// the key splits and blocks.
 int nn1_fused_launch(const void* qp, const void* kp, int n_queries,
-                     int n_keys, void* out_d, void* out_i, void* stream) {
-  nn1_fused_kernel<<<n_queries / kThreads, kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qp), static_cast<const float*>(kp), n_keys,
-      static_cast<float*>(out_d), static_cast<int32_t*>(out_i));
-  return static_cast<int>(cudaGetLastError());
+                     int n_keys, int terms, void* best, void* out_d,
+                     void* out_i, void* design, void* stream) {
+  SplitArgs a{};
+  a.qp = static_cast<const float*>(qp);
+  a.kp = static_cast<const float*>(kp);
+  a.n_queries = n_queries;
+  a.n_keys = n_keys;
+  a.best = static_cast<unsigned long long*>(best);
+  a.stream = static_cast<cudaStream_t>(stream);
+  a.design = static_cast<int*>(design);
+  return launch_split(kFused, terms, a, static_cast<float*>(out_d),
+                      static_cast<int32_t*>(out_i));
 }
 
 // best: n_queries (+ 1 for the compact kernel) 64-bit words of scratch;
@@ -562,7 +562,7 @@ int nn1_masked_launch(const void* qp, const void* kp, const void* mask,
   a.best = static_cast<unsigned long long*>(best);
   a.stream = static_cast<cudaStream_t>(stream);
   a.design = static_cast<int*>(design);
-  return launch_split(false, terms, a, static_cast<float*>(out_d),
+  return launch_split(kMasked, terms, a, static_cast<float*>(out_d),
                       static_cast<int32_t*>(out_i));
 }
 
@@ -584,7 +584,7 @@ int nn1_compact_launch(const void* qp, const void* kp, const void* qt_list,
   a.best = static_cast<unsigned long long*>(best);
   a.stream = static_cast<cudaStream_t>(stream);
   a.design = static_cast<int*>(design);
-  return launch_split(true, terms, a, static_cast<float*>(out_d),
+  return launch_split(kCompact, terms, a, static_cast<float*>(out_d),
                       static_cast<int32_t*>(out_i));
 }
 

@@ -12,9 +12,56 @@
 // tens of MB and does a handful of integer operations per byte. The TPU
 // design (a VMEM band per grid step and a sweep of selects over all
 // (2R+1)^2 offsets, because the TPU has no fast gather) is not carried
-// over: on Hopper one thread per output pixel decodes its own offset and
-// reads its source directly, so each output byte is written once and the
-// window's reuse between neighbouring threads is served by L1/L2.
+// over. In window_read_codes and flow_select_rows one thread per output
+// pixel decodes its own offset and reads its source directly, so each
+// output byte is written once and the window's reuse between neighbouring
+// threads is served by L1/L2.
+//
+// splat_argmin2 inverts the search: a target pixel has L*(2R+1)^2 possible
+// sources but about one a layer lands on it, so rather than each target
+// checking every source, each source is read once and sent to its target.
+// A block owns a kTileW x kTileH tile of targets and two 64-bit slots a
+// target in shared memory. Its threads first copy the tile's source halo
+// (the tile plus 2R rows and columns, every layer; keys and codes) into
+// shared memory with cp.async, so that every load is in flight at once
+// (reading them straight from device memory costs two dependent loads a
+// source in a row, 1.5 times the time, PERF.md §6), then decode
+// each source's offset code, through a table of shifts a code, to its
+// target. Why the result is the sequential one, bit for bit:
+//
+// 1. The candidate that reaches target t from layer l with offset code oc
+//    has visit index v = (l << 16) | oc, ascending in the order of the
+//    plain sweep over (layer, dv, du) (oc < 2^16 and l < 2^15: the shared
+//    memory a block can have holds no halo that large); it comes from
+//    exactly one source position, so (key, v) is unique per target.
+// 2. With a strict '<' from (+inf, -1), the sequential best and runner-up
+//    are the lexicographically smallest and second-smallest (key, v) over
+//    the candidates whose key is below +inf: an equal key enters only
+//    behind the earlier candidates of that key.
+// 3. Keys compare as floats, so -0 equals +0: the packed value is
+//    (order_key(key with -0 taken as +0) << 32) | v, order_key mapping the
+//    float order onto the uint32 order, and the output key is re-read from
+//    the winning source's copy in the halo, so a -0 key keeps its bits.
+// 4. A NaN key or +inf never enters (both fail '< +inf'). An offset code
+//    outside [0, (2R+1)^2) lands nowhere, as in the plain sweep, which
+//    matches only codes in range. A source whose target lies outside the
+//    block's tile is left to that tile's block; one whose target lies
+//    outside [0, H) x [0, W) reaches no slot, or a slot of the last tiles
+//    that is never written out. Sources in the pad land like any other.
+//
+// The first sweep takes the minimum by a shared atomicMin on the packed
+// values (a compare-and-swap loop in SASS: Hopper has no 64-bit shared
+// minimum); after a barrier the second takes, by the same atomic, the minimum
+// over the candidates whose packed value is not the target's best (exactly
+// one candidate, by 1). Each target then writes its pair: codes oc * L + l
+// from v, keys from their sources; +inf / -1 where a slot stayed empty.
+// A source is read once (the halos of neighbouring tiles overlap by 2R,
+// (1 + 2R/kTileW)(1 + 2R/kTileH) reads a source in all) and visited twice
+// from shared memory, against the L*(2R+1)^2 dependent checks a target of
+// a scan makes. What bounds it: the bytes of the halo copy and the
+// sweeps' issue, a few instructions and one shared atomic a candidate;
+// 512 threads a block keep more of both in flight than 256 or 128
+// (tools/argmin2_variants.py, PERF.md §6).
 //
 // Layout: every image is row-major and padded by R on each side of its
 // last two dims, exactly as the callers pass it (the JAX wrappers' extra
@@ -25,6 +72,7 @@
 // Each launcher enqueues on the caller's stream, does not synchronise, and
 // returns cudaGetLastError() so that a refused launch is reported.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,54 +107,155 @@ __global__ void window_read_codes_kernel(
   for (int c = 0; c < C; ++c) dst[c * hw] = src[c * plane];
 }
 
-// Best and second-best (key, code) per target pixel over the L*(2R+1)^2
-// sources whose offset code lands on it, visited in (layer, dv, du) order
-// with strict '<' so that the first candidate wins ties; +inf / -1 where
-// no candidate.
-__global__ void splat_argmin2_kernel(
-    const float* __restrict__ key, const int32_t* __restrict__ off,
-    float* __restrict__ bk, int32_t* __restrict__ bc, float* __restrict__ sk,
-    int32_t* __restrict__ sc, int L, int H, int W, int R) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (x >= W || y >= H) return;
-  const int w2 = 2 * R + 1;
-  const int wp = W + 2 * R;
-  const int plane = (H + 2 * R) * wp;
-  float best_k = __int_as_float(0x7f800000);  // +inf
-  float sec_k = best_k;
-  int32_t best_c = -1, sec_c = -1;
+constexpr int kTileW = 64;  // splat_argmin2: targets a block, x
+constexpr int kTileH = 16;  // and y
+constexpr int kElectThreads = 512;
+constexpr int kElectWarps = kElectThreads / 32;
+constexpr unsigned long long kEmpty = ~0ull;  // no candidate
+
+// The float's bits as an unsigned key in the float order, -0 as +0 (k is
+// not NaN).
+__device__ __forceinline__ uint32_t order_key(float k) {
+  uint32_t b = __float_as_uint(k);
+  if (b == 0x80000000u) b = 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// The block's shared memory: two slots a target, the halo's keys and
+// codes (L layers of (kTileH + 2R) x (kTileW + 2R), row-major), and for
+// each offset code the shift from a source's halo position to its
+// target's tile position.
+struct Election {
+  unsigned long long* best;
+  unsigned long long* sec;
+  float* key;
+  int* code;
+  int* dy;
+  int* dx;
+  int hh, hw;  // halo rows and columns
+
+  __device__ Election(void* smem, int L, int R) {
+    hh = kTileH + 2 * R;
+    hw = kTileW + 2 * R;
+    best = static_cast<unsigned long long*>(smem);
+    sec = best + kTileH * kTileW;
+    key = reinterpret_cast<float*>(sec + kTileH * kTileW);
+    code = reinterpret_cast<int*>(key + L * hh * hw);
+    dy = code + L * hh * hw;
+    dx = dy + (2 * R + 1) * (2 * R + 1);
+  }
+};
+
+size_t election_smem_bytes(int L, int R) {
+  const int n_oc = (2 * R + 1) * (2 * R + 1);
+  return sizeof(unsigned long long) * 2 * kTileH * kTileW +
+         sizeof(float) * 2 * static_cast<size_t>(L) * (kTileH + 2 * R) * (kTileW + 2 * R) +
+         sizeof(int) * 2 * n_oc;
+}
+
+// One sweep over the halo: each candidate that lands in the tile goes to
+// its target's slot by atomicMin; in the second sweep only where it is not
+// the target's best. A warp takes halo rows, its lanes the columns.
+template <bool kSecond>
+__device__ __forceinline__ void elect_sweep(const Election& e, int L, int n_oc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int l = 0; l < L; ++l) {
-    const float* kp = key + (b * L + l) * plane;
-    const int32_t* op = off + (b * L + l) * plane;
-    for (int a = -R; a <= R; ++a) {
-      // The source with offset (a, bb) that lands on (y, x) sits at
-      // unpadded (y - a, x - bb), padded (y + R - a, x + R - bb).
-      const int row = (y + R - a) * wp + x + R;
-      for (int bb = -R; bb <= R; ++bb) {
-        const int oc = (a + R) * w2 + (bb + R);
-        const int idx = row - bb;
-        if (op[idx] != oc) continue;
-        const float cand = kp[idx];
-        const int32_t code = oc * L + l;
-        if (cand < best_k) {
-          sec_k = best_k;
-          sec_c = best_c;
-          best_k = cand;
-          best_c = code;
-        } else if (cand < sec_k) {
-          sec_k = cand;
-          sec_c = code;
+    for (int hy = warp; hy < e.hh; hy += kElectWarps) {
+      for (int hx = lane; hx < e.hw; hx += 32) {
+        const int i = (l * e.hh + hy) * e.hw + hx;
+        const int oc = e.code[i];
+        if (static_cast<unsigned>(oc) >= static_cast<unsigned>(n_oc)) continue;
+        const int ty = hy + e.dy[oc], tx = hx + e.dx[oc];
+        if (static_cast<unsigned>(ty) >= kTileH || static_cast<unsigned>(tx) >= kTileW) continue;
+        const float k = e.key[i];
+        if (!(k < __int_as_float(0x7f800000))) continue;  // NaN, +inf
+        const unsigned long long packed =
+            (static_cast<unsigned long long>(order_key(k)) << 32) |
+            static_cast<uint32_t>((l << 16) | oc);
+        const int slot = ty * kTileW + tx;
+        if (!kSecond) {
+          atomicMin(e.best + slot, packed);
+        } else if (packed != e.best[slot]) {
+          atomicMin(e.sec + slot, packed);
         }
       }
     }
   }
-  const int o = b * H * W + y * W + x;
-  bk[o] = best_k;
-  bc[o] = best_c;
-  sk[o] = sec_k;
-  sc[o] = sec_c;
+}
+
+// A slot's (key, code): the key re-read from the winning source in the
+// halo, the code oc * L + l; +inf / -1 for an empty slot.
+__device__ __forceinline__ void write_slot(const Election& e, unsigned long long slot,
+                                           int ty, int tx, int L, int n_oc,
+                                           float* key_out, int32_t* code_out) {
+  if (slot == kEmpty) {
+    *key_out = __int_as_float(0x7f800000);
+    *code_out = -1;
+    return;
+  }
+  const int v = static_cast<int>(static_cast<uint32_t>(slot));
+  const int l = v >> 16, oc = v & 0xffff;
+  *key_out = e.key[(l * e.hh + ty - e.dy[oc]) * e.hw + tx - e.dx[oc]];
+  *code_out = oc * L + l;
+}
+
+// Best and second-best (key, code) per target pixel over the L*(2R+1)^2
+// sources whose offset code lands on it, visited in (layer, dv, du) order
+// with strict '<' so that the first candidate wins ties; +inf / -1 where
+// no candidate. A block elects the pairs of one tile (see the header).
+__global__ void __launch_bounds__(kElectThreads) splat_argmin2_kernel(
+    const float* __restrict__ key, const int32_t* __restrict__ off,
+    float* __restrict__ bk, int32_t* __restrict__ bc, float* __restrict__ sk,
+    int32_t* __restrict__ sc, int L, int H, int W, int R) {
+  extern __shared__ unsigned long long smem[];
+  const Election e(smem, L, R);
+  const int w2 = 2 * R + 1, n_oc = w2 * w2;
+  const int hp = H + 2 * R, wp = W + 2 * R;
+  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // The halo: padded rows [y0, y0 + hh) and columns [x0, x0 + hw), whose
+  // sources are all that can land on the tile (a source at padded (py, px)
+  // with offset (dv, du) lands on (py - R + dv, px - R + du)), copied with
+  // every load in flight; past the padded frame, code -1.
+  for (int l = 0; l < L; ++l) {
+    const int layer = (b * L + l) * hp * wp;
+    for (int hy = warp; hy < e.hh; hy += kElectWarps) {
+      for (int hx = lane; hx < e.hw; hx += 32) {
+        const int i = (l * e.hh + hy) * e.hw + hx;
+        const int py = y0 + hy, px = x0 + hx;
+        if (py < hp && px < wp) {
+          const int src = layer + py * wp + px;
+          __pipeline_memcpy_async(e.code + i, off + src, sizeof(int32_t));
+          __pipeline_memcpy_async(e.key + i, key + src, sizeof(float));
+        } else {
+          e.code[i] = -1;
+        }
+      }
+    }
+  }
+  __pipeline_commit();
+  for (int t = threadIdx.x; t < kTileH * kTileW; t += kElectThreads) {
+    e.best[t] = kEmpty;
+    e.sec[t] = kEmpty;
+  }
+  for (int oc = threadIdx.x; oc < n_oc; oc += kElectThreads) {
+    e.dy[oc] = oc / w2 - 2 * R;  // ty = hy - R + dv, dv = oc / w2 - R
+    e.dx[oc] = oc % w2 - 2 * R;
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  elect_sweep<false>(e, L, n_oc);
+  __syncthreads();
+  elect_sweep<true>(e, L, n_oc);
+  __syncthreads();
+  for (int t = threadIdx.x; t < kTileH * kTileW; t += kElectThreads) {
+    const int ty = t / kTileW, tx = t % kTileW;
+    const int y = y0 + ty, x = x0 + tx;
+    if (y >= H || x >= W) continue;
+    const int o = (b * H + y) * W + x;
+    write_slot(e, e.best[t], ty, tx, L, n_oc, bk + o, bc + o);
+    write_slot(e, e.sec[t], ty, tx, L, n_oc, sk + o, sc + o);
+  }
 }
 
 // out[b,c,y,x] = rows[b,l,c,y+R-dv,x+R-du] for code[b,y,x] = oc*L + l; 0
@@ -156,14 +305,34 @@ int window_read_codes_launch(const void* img, const void* off, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// design: null, or 3 ints for the tile's width and height and the blocks.
+// A halo past the shared memory a block can have (16 layers or more at R = 4)
+// is refused with cudaErrorInvalidValue.
 int splat_argmin2_launch(const void* key, const void* off, void* bk,
                          void* bc, void* sk, void* sc, int B, int L, int H,
-                         int W, int R, void* stream) {
-  splat_argmin2_kernel<<<grid_for(B, H, W), dim3(kBlockX, kBlockY), 0,
+                         int W, int R, void* design, void* stream) {
+  const size_t smem = election_smem_bytes(L, R);
+  if (smem > 48 * 1024) {
+    int dev = 0, most = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (smem > static_cast<size_t>(most)) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaFuncSetAttribute(
+        splat_argmin2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  splat_argmin2_kernel<<<grid, kElectThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(key), static_cast<const int32_t*>(off),
       static_cast<float*>(bk), static_cast<int32_t*>(bc),
       static_cast<float*>(sk), static_cast<int32_t*>(sc), L, H, W, R);
+  if (design) {
+    int* d = static_cast<int*>(design);
+    d[0] = kTileW;
+    d[1] = kTileH;
+    d[2] = static_cast<int>(grid.x * grid.y * grid.z);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,10 +38,10 @@ needs D + 2 products, D + 1 sums and a compare per visited (query, key)
 pair (10 operations for 3-D points). The least time is that count over the
 published float32 rate off the tensor cores (67 TFLOP/s on an H100 SXM),
 which counts an FMA as two operations; the kernels issue no FMA, for
-bit-exactness, so they cannot reach it. The fused kernel sums all 8 terms;
-the masked and compact kernels sum the D + 2 that carry data (``terms``,
-from the plan's point dimension; the same bits, see the source), take 4
-queries a thread and split their work across blocks, merged by an atomic
+bit-exactness, so they cannot reach it. All three sum the D + 2 terms that
+carry data (``terms``, from the point dimension; the same bits, see the
+source), take up to 4 queries a thread and split their work across blocks
+(the fused kernel into contiguous key ranges), merged by an atomic
 lexicographic minimum, with no host sync. See the source for the design.
 """
 
@@ -63,12 +63,13 @@ launch_counts: Dict[str, int] = {
     "nn1_masked": 0,
     "nn1_compact": 0,
 }
-# The launch parameters of the last masked / compact launch: rows a thread,
-# key splits a query block (masked) and blocks.
+# The launch parameters of each kernel's last launch: rows a thread, key
+# splits a query block (fused, masked) and blocks.
 kernel_design: Dict[str, Dict[str, int]] = {}
 
 _DPAD = 8  # augmented row width
 _BLOCK_Q = 128  # threads per CUDA block: query tiles are multiples of it
+_ROWS = 4  # query rows a thread where the rows allow it
 _PLAIN_BLOCK = 1 << 26  # (query, key) pairs per plain-version block (256 MB)
 _INT32_MAX = 2**31 - 1
 
@@ -214,7 +215,7 @@ def compact_rows_plain(qp, kp, qt, kt, flags, tile_q, tile_m):
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "nn1_fused_launch": (_P, _P, _I, _I, _P, _P, _P),
+    "nn1_fused_launch": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     "nn1_masked_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "nn1_compact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
@@ -261,6 +262,15 @@ def _check_terms(name, terms) -> None:
         raise ValueError(f"{name}: terms={terms}, wants 4, 5 or {_DPAD}")
 
 
+def _fused_rows_multiple(qn: int) -> int:
+    """The query rows :func:`nn1_fused` pads to a multiple of: a block of
+    128 rows times the rows a thread, 4 unless fewer rows fit in it."""
+    rows = 1
+    while rows < _ROWS and qn > rows * _BLOCK_Q:
+        rows *= 2
+    return rows * _BLOCK_Q
+
+
 def _split_outputs(rows: int, device, counter: int):
     """``dist``, ``idx`` and the kernels' 64-bit scratch (one word a row,
     ``counter`` more behind it)."""
@@ -294,20 +304,26 @@ def _check_cuda(name, tile_q, *named) -> None:
 # ---------------------------------------------------------------------------
 
 
-def fused_rows(qp: torch.Tensor, kp: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_rows(
+    qp: torch.Tensor, kp: torch.Tensor, *, terms: int = _DPAD
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest key of every augmented query row over all key rows:
-    ``(dist (Qp,) f32, idx (Qp,) i32)``, raw (not clamped or gated)."""
+    ``(dist (Qp,) f32, idx (Qp,) i32)``, raw (not clamped or gated).
+    ``terms`` as in :func:`masked_rows`. On CUDA the kernel takes 4 rows a
+    thread when ``Qp`` is a multiple of 512, else 2 or 1."""
     name = "nn1_fused"
     _check_rows(name, qp, kp, 1, 1)
+    _check_terms(name, terms)
     if native.on_cpu(name, qp, kp):
         return fused_rows_plain(qp, kp)
     _check_cuda(name, qp.shape[0], ("qp", qp), ("kp", kp))
-    dist = torch.empty(qp.shape[0], dtype=torch.float32, device=qp.device)
-    idx = torch.empty(qp.shape[0], dtype=torch.int32, device=qp.device)
+    dist, idx, best = _split_outputs(qp.shape[0], qp.device, 0)
+    design = (ctypes.c_int * 3)()
     _launch(
-        name, qp.data_ptr(), kp.data_ptr(), qp.shape[0], kp.shape[0],
-        dist.data_ptr(), idx.data_ptr(),
+        name, qp.data_ptr(), kp.data_ptr(), qp.shape[0], kp.shape[0], terms,
+        best.data_ptr(), dist.data_ptr(), idx.data_ptr(), ctypes.addressof(design),
     )
+    _record_design(name, design)
     return dist, idx
 
 
@@ -401,11 +417,12 @@ def nn1_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact single NN (port of ``nn1_pallas``): ``(dist² (Q,), idx (Q,)
     int32)``. Key invalidation rides in the augmented ‖k‖² column. The
-    kernel has no tiles: queries are padded to its block of rows, keys not
-    at all (JAX's tile padding only adds keys that never win)."""
+    kernel has no tiles: queries are padded to its block of rows
+    (:func:`_fused_rows_multiple`), keys not at all (JAX's tile padding only
+    adds keys that never win)."""
     qn = queries.shape[0]
-    qp, kp = _augment(queries, keys, key_valid, _BLOCK_Q, 1)
-    dist, idx = fused_rows(qp, kp)
+    qp, kp = _augment(queries, keys, key_valid, _fused_rows_multiple(qn), 1)
+    dist, idx = fused_rows(qp, kp, terms=_live_terms(queries.shape[1]))
     dist = torch.clamp(dist[:qn], min=0.0)
     dist = torch.where(dist >= INVALID_DIST * 0.5, INVALID_DIST, dist)
     idx = idx[:qn]

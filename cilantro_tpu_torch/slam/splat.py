@@ -14,7 +14,10 @@ at first CUDA use) with a plain PyTorch version beside it. A wrapper runs
 the plain version only when its tensors lie on the CPU; for CUDA tensors it
 launches the kernel or raises. Every launch adds one to
 ``launch_counts[<name>]``. Kernel and plain version are pure selects and
-agree bit for bit.
+agree bit for bit. :func:`splat_argmin2`'s kernel elects each tile's pairs
+in shared memory from the sources that land on it (a lexicographic
+minimum of ``(key, visit index)``, see the source); the other two read one
+source a pixel.
 
 Padding convention (the JAX module's): callers pad the last two dims by
 ``R`` on each side (key=+inf, code/off=-1, rows=0) and pass
@@ -41,6 +44,9 @@ launch_counts: Dict[str, int] = {
     "splat_argmin2": 0,
     "flow_select_rows": 0,
 }
+# The launch parameters of the last splat_argmin2 launch: the tile of
+# target pixels a block elects and the blocks.
+kernel_design: Dict[str, Dict[str, int]] = {}
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -68,7 +74,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "window_read_codes_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "splat_argmin2_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "splat_argmin2_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
     "flow_select_rows_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
@@ -217,11 +223,13 @@ def splat_argmin2(
     sk = torch.empty_like(bk)
     bc = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     sc = torch.empty_like(bc)
+    design = (ctypes.c_int * 3)()
     _launch(
         name, "splat_argmin2_launch",
         key.data_ptr(), off.data_ptr(), bk.data_ptr(), bc.data_ptr(),
-        sk.data_ptr(), sc.data_ptr(), b, layers, h, w, r,
+        sk.data_ptr(), sc.data_ptr(), b, layers, h, w, r, ctypes.addressof(design),
     )
+    kernel_design[name] = dict(tile_w=design[0], tile_h=design[1], blocks=design[2])
     return bk, bc, sk, sc
 
 

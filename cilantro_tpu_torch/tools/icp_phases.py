@@ -1,5 +1,6 @@
 """Run ``chip_smoke.py``'s nn1 and ICP phases (5-8) and the kNN-normals
-registration (phase 15) of one checkout, on one CUDA card:
+registration (phase 15) of one checkout, and a profiler window of one
+``entry()`` forward, on one CUDA card:
 
     python3 cilantro_tpu_torch/tools/icp_phases.py [ROOT]
 
@@ -29,6 +30,7 @@ def main(root: str) -> int:
     sys.path.insert(0, root)
     os.chdir(root)
     import chip_smoke as cs
+    import cilantro_tpu_torch.entry as entry_mod
     from cilantro_tpu_torch import native
     from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
     from cilantro_tpu_torch.entry import _toy_pair
@@ -69,6 +71,13 @@ def main(root: str) -> int:
         cs.icp_main_path(fused_nn, icp_mod, pair, rel, card)
         cs.wide_gate_path(fused_nn, icp_mod, pair, rel)
         cs.entry_path(fused_nn)
+        fwd, args = entry_mod.entry()
+        fwd(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(*args)
+        torch.cuda.synchronize()
+        keep(phase="entry_profile", **cs.profile_once(lambda: fwd(*args), (time.perf_counter() - t0) * 1e3))
         cloud0 = cs.frame_cloud(depths[0], k, dev)
         cs.knn_normals_registration(fused_knn, fused_nn, icp_mod, pair[0], cloud0, rel)
     finally:
@@ -88,6 +97,9 @@ def main(root: str) -> int:
         wide_gate_ms=by_phase["icp_wide_gate_path"]["ms"],
         masked_at_wide_gate_ms=by_phase["masked_at_wide_gate"]["ms"],
         entry_ms=by_phase["entry"]["ms"],
+        entry_device_ms=by_phase["entry_profile"].get("device_kernel_ms"),
+        entry_idle=by_phase["entry_profile"].get("device_idle_share"),
+        entry_top_kernels=by_phase["entry_profile"].get("top_kernels", [])[:3],
         knn_registration_ms=by_phase["knn_normals_registration"]["ms"],
         knn_registration_ms_repeat=by_phase["knn_normals_registration"]["ms_repeat"],
         translation_error_m=icp["translation_error_m"], rotation_error_rad=icp["rotation_error_rad"],

@@ -1,17 +1,20 @@
-"""Time variants of the masked and compact nn1 kernels on one CUDA card:
+"""Time variants of the three nn1 kernels on one CUDA card:
 
     python3 cilantro_tpu_torch/tools/nn1_variants.py
 
 Run from the root of a checkout. Builds ``csrc/nn1_kernels.cu`` as it is
 and with one constant changed per variant (the rows a thread, the
-distances in flight a thread) into ``_build/variants/``, then holds each
-against the plain version bit for bit and times it (``chip_smoke.py``'s
-``device_ms``) at the first full-resolution pass of ``icp_multires`` on
-the 640×480 pair and at the first pass of the 0.5 m gate, visiting the
-variants forward and then backward so that drift shows. One JSON line a
-variant and case, after one line per variant with the instructions a
-(query, key) pair in each kernel instance's distance loop, counted in the
-SASS that ``cuobjdump`` prints.
+distances in flight a thread, the fused kernel's key splits: the waves of
+resident blocks it aims at and the least keys a split) into
+``_build/variants/``, then holds each against the plain version bit for
+bit and times it (``chip_smoke.py``'s ``device_ms``): the fused kernel at
+the ``entry()`` pair (4096²) and at the coarse ICP level (32768²), the
+masked and compact ones at the first full-resolution pass of
+``icp_multires`` on the 640×480 pair and at the first pass of the 0.5 m
+gate, visiting the variants forward and then backward so that drift
+shows. One JSON line a variant and case, after one line per variant with
+the instructions a (query, key) pair in each kernel instance's distance
+loop, counted in the SASS that ``cuobjdump`` prints.
 """
 
 from __future__ import annotations
@@ -29,18 +32,22 @@ VARIANTS = (
     ("2 rows a thread", {"for (int r = 4; r > 1; r /= 2)": "for (int r = 2; r > 1; r /= 2)"}),
     ("1 row a thread", {"for (int r = 4; r > 1; r /= 2)": "for (int r = 1; r > 1; r /= 2)"}),
     ("8 in flight", {"constexpr int kChains = 16;": "constexpr int kChains = 8;"}),
+    ("fused: 1 wave", {"constexpr int kFusedWaves = 4;": "constexpr int kFusedWaves = 1;"}),
+    ("fused: 16 waves", {"constexpr int kFusedWaves = 4;": "constexpr int kFusedWaves = 16;"}),
+    ("fused: splits of 64 keys or more",
+     {"constexpr int kFusedMinKeys = kThreads;": "constexpr int kFusedMinKeys = 64;"}),
 )
 
 
 def loop_counts(so: Path, nvcc: str, chains: int):
-    """Per masked / compact instance: the instructions of its distance loop
+    """Per fused / masked / compact instance: the instructions of its distance loop
     (the smallest loop whose FMULs are chains x NT, one per term of
     ``chains`` pairs) over its pairs, with the loop's opcode counts."""
     sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"(masked|compact)_kernelILi(\d)ELi(\d)E", func.split("\n", 1)[0])
+        m = re.search(r"(fused|masked|compact)_kernelILi(\d)ELi(\d)E", func.split("\n", 1)[0])
         if not m:
             continue
         nt = int(m.group(2))
@@ -104,6 +111,7 @@ def main() -> int:
     import chip_smoke as cs
     from cilantro_tpu_torch import native
     from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
+    from cilantro_tpu_torch.entry import _toy_pair
     from cilantro_tpu_torch.neighbors import fused_nn as nn
     from cilantro_tpu_torch.slam.driver import synthetic_sequence
 
@@ -115,6 +123,18 @@ def main() -> int:
     depths, _ = synthetic_sequence(cs.FRAMES, cs.H, cs.W, k, seed=0)
     pair = (cs.frame_clouds(depths[1], k, dev), cs.frame_clouds(depths[0], k, dev))
     order = list(range(len(VARIANTS)))
+    coarse = cs.coarse_clouds(*pair, cs.BENCH_LEVELS[0])
+    toy = [torch.as_tensor(a, device=dev) for a in _toy_pair()]
+    for case, (q, kk, kv) in (("4096x4096", (toy[0], toy[1], None)),
+                              ("32768x32768", (coarse[0][0], coarse[1][0], coarse[1][2]))):
+        qp, kp = nn._augment(q, kk, kv, nn._fused_rows_multiple(q.shape[0]), 1)
+        want = nn.fused_rows_plain(qp, kp)
+        for i in order + order[::-1]:
+            nn._kernels = lambda lib=libs[i]: lib
+            fused = lambda: nn.fused_rows(qp, kp, terms=5)
+            cs.assert_same_bits(f"{VARIANTS[i][0]} fused", fused(), want)
+            cs.emit(variant=VARIANTS[i][0], case=case, fused_ms=cs.device_ms(fused),
+                    fused_design=nn.kernel_design["nn1_fused"], card=cs.card_line())
     for case, mcd in (("first pass", cs.BENCH_LEVELS[1][3]), ("wide-gate first pass", 0.25)):
         qp, kp, within, budget, tq, tm = cs.first_pass(nn, *pair, mcd)
         mask = within.to(torch.int32)

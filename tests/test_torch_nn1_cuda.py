@@ -270,3 +270,83 @@ def test_entry_iterations_lie_on_the_card(cuda):
     res = results[-1]
     assert res.iterations.device == res.transform.linear.device
     assert res.iterations.device.type == "cuda"
+
+
+def _fused_operands(dev, seed, dim, qn, mn, all_invalid=False):
+    """``nn1_fused``'s rows for a ``dim``-D cloud: exact query copies,
+    repeated keys, 10% masked keys (all if ``all_invalid``), -0.0
+    coordinates and invalid queries at 1e30; queries padded as
+    ``nn1_fused`` pads them, keys not at all."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-0.5, 0.5, (qn, dim)).astype(np.float32)
+    k = rng.uniform(-0.5, 0.5, (mn, dim)).astype(np.float32)
+    n = min(qn, mn) // 4
+    k[:n] = q[:n]  # distance-0 ties
+    k[n : 2 * n] = k[:n]  # repeated keys: ties to the smaller index
+    q[-3:] = 1e30
+    k[-1:] = -0.0
+    kv = torch.from_numpy(rng.random(mn) < 0.9)
+    if all_invalid:
+        kv[:] = False
+    qp, kp = nn._augment(torch.from_numpy(q), torch.from_numpy(k), kv, nn._fused_rows_multiple(qn), 1)
+    return qp.to(dev), kp.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3, 5])
+@pytest.mark.parametrize("qn", [128, 512, 4096])
+@pytest.mark.parametrize("mn", [1, 130, 300, 4097])
+def test_fused_kernel_splits_match_plain(cuda, dim, qn, mn):
+    """One block, one 4-row block and the ``entry()`` shape; one key, keys
+    below one stage (a single tail split) and a key count that is a
+    multiple of nothing. One launch a call."""
+    qp, kp = _fused_operands(cuda, 30 + dim + qn + mn, dim, qn, mn)
+    terms = nn._live_terms(dim)
+    got = _launched("nn1_fused", lambda: nn.fused_rows(qp, kp, terms=terms))
+    _same(got, nn.fused_rows_plain(qp, kp))
+    design = nn.kernel_design["nn1_fused"]
+    assert design["rows_per_thread"] == {128: 1, 512: 4, 4096: 4}[qn]
+    assert design["blocks"] == qn // (128 * design["rows_per_thread"]) * design["splits"]
+    if mn <= 128:
+        assert design["splits"] == 1
+    if qn == 4096 and mn == 4097:
+        assert design["splits"] > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_fused_kernel_all_keys_invalid_keeps_the_start(cuda, dim):
+    qp, kp = _fused_operands(cuda, 40 + dim, dim, 512, 3000, all_invalid=True)
+    d, i = _launched("nn1_fused", lambda: nn.fused_rows(qp, kp, terms=nn._live_terms(dim)))
+    _same((d, i), nn.fused_rows_plain(qp, kp))
+    assert (d[:509] == 3e38).all() and (i[:509] == 0).all()
+
+
+@pytest.mark.cuda
+def test_fused_launch_does_not_sync(cuda):
+    qp, kp = _fused_operands(cuda, 42, 3, 4096, 4096)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = nn.fused_rows(qp, kp, terms=5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _same(got, nn.fused_rows_plain(qp, kp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn", [100, 200, 1000])
+def test_nn1_fused_on_card_matches_cpu(cuda, qn):
+    """The whole wrapper (padding, live terms, clamp, gates) against its CPU
+    run, which takes the plain version: the same bits."""
+    rng = np.random.default_rng(qn)
+    q = rng.uniform(-0.5, 0.5, (qn, 3)).astype(np.float32)
+    k = rng.uniform(-0.5, 0.5, (2500, 3)).astype(np.float32)
+    k[:50] = q[:50]
+    qv, kv = rng.random(qn) < 0.9, rng.random(2500) < 0.9
+    outs = [
+        nn.nn1_fused(*(torch.from_numpy(a).to(dev) for a in (q, k)),
+                     query_valid=torch.from_numpy(qv).to(dev), key_valid=torch.from_numpy(kv).to(dev))
+        for dev in (cuda, torch.device("cpu"))
+    ]
+    _same(outs[0], outs[1])

@@ -139,3 +139,43 @@ def test_split_folds_merged_by_packed_min_are_the_plain_result(kind, parts):
     assert np.array_equal(got_i, want_i.numpy())
     assert (got_d[:tq] == INVALID).all() and (got_i[:tq] == 0).all()
     assert (got_d == 0).any()  # distance-0 ties were decided
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("mn", [1, 130, 300, 1000])
+@pytest.mark.parametrize("splits", [2, 3, 7])
+def test_contiguous_key_splits_merged_are_the_fused_fold(dim, mn, splits):
+    """The fused kernel's split: parts of ``span`` consecutive keys (a
+    multiple of the staging step, the last part the tail; keys unpadded, as
+    ``nn1_fused`` leaves them), each folded alone over the D + 2 live terms,
+    merged by the packed minimum, give ``fused_rows_plain``'s bits."""
+    rng = np.random.default_rng(100 * dim + mn + splits)
+    q, k, kv = _cloud(rng, dim, 300, max(mn, 70))
+    k, kv = k[:mn], kv[:mn]
+    if mn == 130:
+        kv[:] = False  # every key masked: every row keeps (3e38, 0)
+    qp, kp = nn._augment(q, k, kv, nn._fused_rows_multiple(q.shape[0]), 1)
+    assert kp.shape[0] == mn and qp.shape[0] == 512
+    want_d, want_i = nn.fused_rows_plain(qp, kp)
+    dist = _terms_dist(qp, kp, nn._live_terms(dim)).numpy()
+    step = 16
+    span = max(step, -(-(-(-mn // splits)) // step) * step)
+    parts = [range(k0, min(mn, k0 + span)) for k0 in range(0, mn, span)]
+    assert sum(len(p) for p in parts) == mn
+    got_d, got_i = _merge([_fold(dist, p) for p in parts])
+    assert np.array_equal(got_d.view(np.int32), want_d.numpy().view(np.int32))
+    assert np.array_equal(got_i, want_i.numpy())
+    real = slice(0, q.shape[0])  # padding rows (zeros) are at 0 from every key
+    if mn == 130:
+        assert (got_d[real] == INVALID).all() and (got_i[real] == 0).all()
+    else:
+        assert (got_d[30:33] == INVALID).all()  # queries at 1e30 find nothing
+
+
+@pytest.mark.parametrize("qn, rows", [(1, 128), (128, 128), (129, 256), (256, 256), (257, 512), (4096, 4096)])
+def test_fused_query_padding_gives_the_kernel_four_rows_a_thread(qn, rows):
+    """``nn1_fused`` pads queries to 128 rows a block times the rows a
+    thread: 4 from 257 queries up, 2 or 1 below."""
+    mult = nn._fused_rows_multiple(qn)
+    assert -(-qn // mult) * mult == rows
+    assert mult == 128 * {128: 1, 256: 2}.get(rows, 4)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from cilantro_tpu_torch.slam import splat
+from test_torch_argmin2_election import edge_case_inputs
 
 LAYERS, H, W = 2, 64, 80
 
@@ -107,3 +108,23 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         splat.window_read_codes(img, off.cpu(), radius=r)
     with pytest.raises(ValueError, match="contiguous"):
         splat.window_read_codes(img.transpose(2, 3).contiguous().transpose(2, 3), off, radius=r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", (2, 4))
+@pytest.mark.parametrize("hw", ((37, 101), (16, 64), (130, 70)))
+def test_cuda_argmin2_edge_cases_match_plain(r, hw, cuda):
+    """Two frames of two layers; ties, signed zeros, NaN and +inf keys,
+    codes out of range, pad sources; frames cut by the tile and not."""
+    key, off = edge_case_inputs(r + hw[0], r, h=hw[0], w=hw[1])
+    plain = splat.splat_argmin2_plain(key, off, r)
+    dev = _launched(
+        "splat_argmin2", lambda: splat.splat_argmin2(key.to(cuda), off.to(cuda), radius=r)
+    )
+    for p, d in zip(plain, dev):
+        np.testing.assert_array_equal(_bits(d), _bits(p))
+    design = splat.kernel_design["splat_argmin2"]
+    tiles = -(-hw[0] // design["tile_h"]) * -(-hw[1] // design["tile_w"])
+    assert design["blocks"] == 2 * tiles
+    bk, _, sk, _ = plain
+    assert ((bk == 0) & torch.signbit(bk)).any() and (bk == sk).any()
