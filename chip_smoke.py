@@ -14,15 +14,16 @@ in order; any failure raises and exits non-zero without the final line:
    selects), and time kernel and plain version (CUDA events, median of 25
    runs after warm-up, launches queued behind a sleep kernel so that host
    enqueue time is not counted) beside the byte bound at 3.35 TB/s;
-   ``splat_argmin2`` with its design record (the tile a block elects) and
-   the previous design's time on the case;
+   ``splat_argmin2`` and ``flow_select_rows`` with their design records
+   (the tile a block elects; pixels a thread, decode, store width) and the
+   previous design's time on the case;
 3. run splat fusion, the headline pipeline, through its entry point on 16
    synthetic 640×480 frames (radius 4, margin 16): launch counts, ms/frame,
-   frames/s, ATE against ground truth (< 2e-3 m); ``splat_argmin2`` on the
-   last frame's own inputs (recorded on the way), bit for bit against its
-   plain version and timed as in phase 2 beside the previous design's
-   time; then a per-stage time split and a profiler window
-   (informational);
+   frames/s, ATE against ground truth (< 2e-3 m); each of the three splat
+   kernels on the inputs of its last call (recorded on the way), bit for
+   bit against its plain version and timed as in phase 2 beside its byte
+   bound and, for the two redesigned ones, the previous design's time;
+   then a per-stage time split and a profiler window (informational);
 4. run the first 4 frames through the same entry point on the CPU (the
    plain versions) and require the poses to agree within 1e-4 m / 1e-4 rad;
 5. hold each nn1 kernel against its plain version on the card, bit for bit:
@@ -200,58 +201,57 @@ def assert_same_bits(name, kernel_out, plain_out):
             raise AssertionError(f"{name}: kernel and plain version differ at {bad} elements")
 
 
-def kernel_checks(splat, dev):
-    """Phase 2: each kernel against its plain version at main-path shapes."""
+def phase2_inputs(dev):
+    """Phase 2's inputs of the three splat kernels at the model grid, drawn
+    from one generator in this order: a 7-channel frame broadcast to both
+    layers and window codes; argmin2's tie-heavy keys and codes; an
+    8-channel map broadcast to the winner and runner-up codes. Codes are
+    uniform with ~20% -1; on a (2R+1)-window grid the codes near the border
+    reach into the pad."""
     rng = np.random.default_rng(0)
     r = RADIUS
     w2 = 2 * r + 1
     hp, wp = HM + 2 * r, WM + 2 * r
 
     def codes(shape, high):
-        """Codes uniform in [0, high) with ~20% -1; on a (2R+1)-window grid
-        the codes near the border reach into the pad."""
         c = rng.integers(0, high, size=shape).astype(np.int32)
         c[rng.random(shape) < 0.2] = -1
         return torch.from_numpy(c).to(dev)
 
-    records = []
-
-    # window_read_codes: a 7-channel frame broadcast to both layers.
     img = torch.from_numpy(
         rng.integers(-(2**31), 2**31 - 1, size=(1, 7, hp, wp), dtype=np.int64).astype(np.int32)
     ).to(dev).expand(LAYERS, -1, -1, -1)
     off = codes((LAYERS, HM, WM), w2 * w2)
-    n_ok = int((off >= 0).sum())
-    nbytes = off.numel() * 4 + LAYERS * 7 * HM * WM * 4 + min(7 * hp * wp, n_ok * 7) * 4
-    records.append(dict(
-        name="window_read_codes", replaces="cilantro_tpu/slam/splat.py:312",
-        kernel=lambda: splat.window_read_codes(img, off, radius=r),
-        plain=lambda: splat.window_read_codes_plain(img, off, r),
-        nbytes=nbytes,
-    ))
-
-    # splat_argmin2: one stream, two layers, keys in [0.5, 3) m with ties.
     key, aoff = argmin2_tie_case(rng, dev)
-    records.append(dict(
-        name="splat_argmin2", replaces="cilantro_tpu/slam/splat.py:107",
-        kernel=lambda: splat.splat_argmin2(key, aoff, radius=r),
-        plain=lambda: splat.splat_argmin2_plain(key, aoff, r),
-        nbytes=argmin2_bytes(aoff), case="tie-heavy random",
-    ))
-
-    # flow_select_rows: winner and runner-up codes of one 8-channel map.
     rows = torch.from_numpy(
         rng.standard_normal((1, LAYERS, 8, hp, wp)).astype(np.float32)
     ).to(dev).expand(2, -1, -1, -1, -1)
     code = codes((2, HM, WM), LAYERS * w2 * w2)
-    n_ok = int((code >= 0).sum())
-    nbytes = code.numel() * 4 + 2 * 8 * HM * WM * 4 + min(LAYERS * 8 * hp * wp, n_ok * 8) * 4
-    records.append(dict(
-        name="flow_select_rows", replaces="cilantro_tpu/slam/splat.py:221",
-        kernel=lambda: splat.flow_select_rows(rows, code, radius=r),
-        plain=lambda: splat.flow_select_rows_plain(rows, code, r),
-        nbytes=nbytes,
-    ))
+    return {"window_read_codes": (img, off), "splat_argmin2": (key, aoff),
+            "flow_select_rows": (rows, code)}
+
+
+def kernel_checks(splat, dev):
+    """Phase 2: each kernel against its plain version at main-path shapes."""
+    r = RADIUS
+    inputs = phase2_inputs(dev)
+    img, off = inputs["window_read_codes"]
+    key, aoff = inputs["splat_argmin2"]
+    rows, code = inputs["flow_select_rows"]
+    records = [
+        dict(name="window_read_codes", replaces="cilantro_tpu/slam/splat.py:312",
+             kernel=lambda: splat.window_read_codes(img, off, radius=r),
+             plain=lambda: splat.window_read_codes_plain(img, off, r),
+             nbytes=window_read_bytes(img, off, r)),
+        dict(name="splat_argmin2", replaces="cilantro_tpu/slam/splat.py:107",
+             kernel=lambda: splat.splat_argmin2(key, aoff, radius=r),
+             plain=lambda: splat.splat_argmin2_plain(key, aoff, r),
+             nbytes=argmin2_bytes(aoff), case="tie-heavy random"),
+        dict(name="flow_select_rows", replaces="cilantro_tpu/slam/splat.py:221",
+             kernel=lambda: splat.flow_select_rows(rows, code, radius=r),
+             plain=lambda: splat.flow_select_rows_plain(rows, code, r),
+             nbytes=select_rows_bytes(rows, code, r), case="random codes"),
+    ]
 
     out = []
     for rec in records:
@@ -278,13 +278,17 @@ def kernel_checks(splat, dev):
     return out
 
 
-# Kernel ms of the previous splat_argmin2 (one thread per target, a
-# dependent check of each of its 162 candidate sources), NVIDIA H100 80GB
-# HBM3 at 700 W, final run of PR 6: phase 2's case (CUDA events) and the
-# path's frames (the profile phase's mean over 6 frames).
+# Kernel ms of the previous designs, NVIDIA H100 80GB HBM3 at 700 W:
+# splat_argmin2 (one thread per target, a dependent check of each of its
+# 162 candidate sources), this script's phase 2 case (CUDA events) and the
+# path's frames (the profile phase's mean over 6 frames);
+# flow_select_rows (one thread a pixel, four divisions, scalar stores),
+# tools/select_rows_variants.py: the mean of its two visits of each case.
 PREVIOUS_SPLAT_MS = {
     ("splat_argmin2", "tie-heavy random"): 0.05951999872922897,
     ("splat_argmin2", "splat path frame"): 0.048864666666666993,
+    ("flow_select_rows", "random codes"): (0.037087999284267426 + 0.036959998309612274) / 2,
+    ("flow_select_rows", "splat path frame"): (0.0161920003592968 + 0.0163199994713068) / 2,
 }
 
 
@@ -312,43 +316,106 @@ def argmin2_bytes(off) -> int:
     return off.numel() * 4 + n_ok * 4 + 4 * b * (hp - 2 * r) * (wp - 2 * r) * 4
 
 
+def _distinct_elements(t) -> int:
+    """Elements of a tensor whose batch entries may be one broadcast entry."""
+    return t[0].numel() if t.shape[0] > 1 and t.stride(0) == 0 else t.numel()
+
+
+def window_read_bytes(img, off, r) -> int:
+    """window_read_codes' bytes: every code read once, the (B, C, H, W)
+    output written once, and C words a code in the window, at most every
+    distinct image word once."""
+    b, c, hp, wp = img.shape
+    n_ok = int(((off >= 0) & (off < (2 * r + 1) ** 2)).sum())
+    return (off.numel() + b * c * (hp - 2 * r) * (wp - 2 * r)
+            + min(_distinct_elements(img), n_ok * c)) * 4
+
+
+def select_rows_bytes(rows, code, r) -> int:
+    """flow_select_rows' bytes: every code read once, the (B, C, H, W)
+    output written once, and C words a code in range, at most every
+    distinct row word once."""
+    b, layers, c, hp, wp = rows.shape
+    n_ok = int(((code >= 0) & (code < layers * (2 * r + 1) ** 2)).sum())
+    return (code.numel() + b * c * (hp - 2 * r) * (wp - 2 * r)
+            + min(_distinct_elements(rows), n_ok * c)) * 4
+
+
+PATH_KERNELS = ("window_read_codes", "splat_argmin2", "flow_select_rows")
+
+
 @contextlib.contextmanager
-def argmin2_recorded(sf, kept: dict):
-    """A context in which splat fusion's ``splat_argmin2`` calls keep the
-    last call's inputs in ``kept`` (the tensors are made anew each frame
-    and never written after the call)."""
+def path_recorded(sf, kept: dict):
+    """A context in which splat fusion's calls of the three splat kernels
+    keep the last call's inputs in ``kept[name]`` as ``(args, radius)``
+    (the tensors are made anew each frame or iteration and never written
+    after the call)."""
     from unittest import mock
 
-    real = sf.splat_argmin2
+    def recorder(name):
+        real = getattr(sf, name)
 
-    def recording(key, off, *, radius):
-        kept.update(key=key, off=off, radius=radius)
-        return real(key, off, radius=radius)
+        def recording(*args, radius):
+            kept[name] = (args, radius)
+            return real(*args, radius=radius)
 
-    with mock.patch.object(sf, "splat_argmin2", recording):
+        return recording
+
+    with contextlib.ExitStack() as stack:
+        for name in PATH_KERNELS:
+            stack.enter_context(mock.patch.object(sf, name, recorder(name)))
         yield
 
 
-def argmin2_path_frame(splat, kept):
-    """Phase 3b: the argmin2 kernel against its plain version, bit for bit,
-    on the last frame of the main path, timed as in phase 2."""
-    key, off, r = kept["key"], kept["off"], kept["radius"]
-    k_out = splat.splat_argmin2(key, off, radius=r)
-    p_out = splat.splat_argmin2_plain(key, off, r)
-    torch.cuda.synchronize()
-    assert_same_bits("splat_argmin2 on a path frame", k_out, p_out)
-    nbytes = argmin2_bytes(off)
-    ms = device_ms(lambda: splat.splat_argmin2(key, off, radius=r))
+def code_coherence(code, width) -> float:
+    """Share of aligned runs of ``width`` horizontally adjacent codes (in
+    range or not) that are all equal: 1 where a bounded flow moves whole
+    patches by one offset, about 0 for random codes."""
+    c = code[..., : code.shape[-1] // width * width].reshape(*code.shape[:-1], -1, width)
+    return float((c == c[..., :1]).all(-1).float().mean())
+
+
+def path_frame_checks(splat, kept):
+    """Phase 3b: each splat kernel against its plain version, bit for bit,
+    on the inputs of its last call on the main path, timed as in phase 2
+    beside its byte bound (phase 2's formulas). Returns the kernel ms by
+    name."""
     case = "splat path frame"
-    emit(phase="kernel_vs_plain", tolerance="bit-exact", name="splat_argmin2", case=case,
-         max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)), ms=ms,
-         plain_ms=device_ms(lambda: splat.splat_argmin2_plain(key, off, r)),
-         bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nbytes,
-         sources_in_window=int(((off >= 0) & (off < (2 * r + 1) ** 2)).sum()),
-         targets_with_a_runner_up=int((p_out[3] >= 0).sum()),
-         design=dict(splat.kernel_design["splat_argmin2"]),
-         previous_design_ms=PREVIOUS_SPLAT_MS[("splat_argmin2", case)])
-    return ms
+    out = {}
+    for name in PATH_KERNELS:
+        args, r = kept[name]
+        kernel = lambda: getattr(splat, name)(*args, radius=r)  # noqa: E731
+        plain = lambda: getattr(splat, f"{name}_plain")(*args, r)  # noqa: E731
+        as_tuple = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+        k_out, p_out = as_tuple(kernel()), as_tuple(plain())
+        torch.cuda.synchronize()
+        assert_same_bits(f"{name} on a path frame", k_out, p_out)
+        if name == "window_read_codes":
+            nbytes = window_read_bytes(*args, r)
+            stats = dict(codes_in_window=int(((args[1] >= 0) & (args[1] < (2 * r + 1) ** 2)).sum()),
+                         code_coherence_4=code_coherence(args[1], 4))
+        elif name == "splat_argmin2":
+            off = args[1]
+            nbytes = argmin2_bytes(off)
+            stats = dict(sources_in_window=int(((off >= 0) & (off < (2 * r + 1) ** 2)).sum()),
+                         targets_with_a_runner_up=int((p_out[3] >= 0).sum()))
+        else:
+            rows, code = args
+            nbytes = select_rows_bytes(rows, code, r)
+            n_codes = rows.shape[1] * (2 * r + 1) ** 2
+            stats = dict(codes_in_range=[int(((c >= 0) & (c < n_codes)).sum()) for c in code],
+                         code_coherence_4=code_coherence(code, 4),
+                         distinct_codes=int(torch.unique(code).numel()), shape=list(rows.shape))
+        if name in splat.kernel_design:
+            stats.update(design=dict(splat.kernel_design[name]),
+                         previous_design_ms=PREVIOUS_SPLAT_MS[(name, case)])
+        ms = device_ms(kernel)
+        emit(phase="kernel_vs_plain", tolerance="bit-exact", name=name, case=case,
+             max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)), ms=ms,
+             plain_ms=device_ms(plain), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+             bound_by="bytes", bytes=nbytes, **stats)
+        out[name] = ms
+    return out
 
 
 def rot_angle(a: np.ndarray, b: np.ndarray) -> float:
@@ -1541,7 +1608,7 @@ def main() -> int:
 
     splat.reset_launch_counts()
     frame_inputs = {}
-    with argmin2_recorded(sf, frame_inputs):
+    with path_recorded(sf, frame_inputs):
         smap, poses, spf, per_frame = sf.run_splat_sequence(depths, k, cfg=cfg, device="cuda")
     launches = dict(splat.launch_counts)
     ate = ate_rmse(poses, gt, device="cuda")
@@ -1569,7 +1636,7 @@ def main() -> int:
         ms_per_frame_repeat=spf2 * 1e3, frames_per_s_repeat=1.0 / spf2,
         ate_m=ate, live_surfels=len(pts), card=card,
     )
-    path_frame_ms = argmin2_path_frame(splat, frame_inputs)
+    path_frame_ms = path_frame_checks(splat, frame_inputs)
     emit(phase="stage_split_ms_per_frame", card=card, **stage_split(sf, depths, k, cfg, dev))
     try:
         emit(phase="profile", card=card, **profile_window(sf, depths, k, cfg, dev, spf2 * 1e3))
@@ -1591,8 +1658,7 @@ def main() -> int:
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["path"] = "splat fusion, 16 frames"
-        if entry["name"] == "splat_argmin2":
-            entry["path_frame_ms"] = path_frame_ms
+        entry["path_frame_ms"] = path_frame_ms[entry["name"]]
 
     # 5. nn1 kernels vs plain on the card.
     from cilantro_tpu_torch.entry import _toy_pair

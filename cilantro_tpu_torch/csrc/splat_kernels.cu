@@ -12,10 +12,12 @@
 // tens of MB and does a handful of integer operations per byte. The TPU
 // design (a VMEM band per grid step and a sweep of selects over all
 // (2R+1)^2 offsets, because the TPU has no fast gather) is not carried
-// over. In window_read_codes and flow_select_rows one thread per output
-// pixel decodes its own offset and reads its source directly, so each
-// output byte is written once and the window's reuse between neighbouring
-// threads is served by L1/L2.
+// over. In window_read_codes one thread per output pixel decodes its own
+// offset and reads its source directly, so each output byte is written
+// once and the window's reuse between neighbouring threads is served by
+// L1/L2; flow_select_rows does the same for two adjacent pixels a thread,
+// decoding through a shared-memory table and writing vectors (its design
+// is stated above its kernel).
 //
 // splat_argmin2 inverts the search: a target pixel has L*(2R+1)^2 possible
 // sources but about one a layer lands on it, so rather than each target
@@ -258,33 +260,155 @@ __global__ void __launch_bounds__(kElectThreads) splat_argmin2_kernel(
   }
 }
 
-// out[b,c,y,x] = rows[b,l,c,y+R-dv,x+R-du] for code[b,y,x] = oc*L + l; 0
-// where code is outside [0, L*(2R+1)^2). Copies the 32-bit patterns.
-// rows' batch stride may be 0 (winner and runner-up codes of one map).
-__global__ void flow_select_rows_kernel(
+// flow_select_rows: out[b,c,y,x] = rows[b,l,c,y+R-dv,x+R-du] for
+// code[b,y,x] = oc*L + l; 0 where code is outside [0, L*(2R+1)^2). Copies
+// the 32-bit patterns; rows' batch stride may be 0 (winner and runner-up
+// codes of one map).
+//
+// What bounds it: bytes, above all the (B, C, H, W) output it writes
+// (B = 2 and C = 8 on splat fusion's path) and the source rows the codes
+// name; it does no arithmetic. On the path neighbouring pixels carry the
+// same code (a bounded flow moves whole patches by one offset), so the
+// sources of a warp's pixels are nearly contiguous, and what decides the
+// time is that every load is in flight at once, that the grid fills the
+// card in even waves, and that the output does not push the sources out
+// of L2. Design:
+// - a thread owns kSelectPix horizontally adjacent pixels: one vector load
+//   of their codes, and one kSelectPix-wide store a channel when W is a
+//   multiple of kSelectPix and the code and output rows are aligned to it
+//   (the path's W = 672 is); scalar loads and stores otherwise. Two
+//   pixels a thread (8-byte vectors) beat four on the path's frame: with
+//   four, the registers allow fewer resident blocks than the grid has and
+//   a few blocks run in a second wave of their own;
+// - no runtime division a pixel: each block first builds, in shared
+//   memory, the source offset of every code, l*C*plane + (2R - oc/w2)*wp
+//   + (2R - oc%w2) from the pixel's own padded position (the code loads
+//   are in flight meanwhile); a code is range-checked before it indexes
+//   the table. A table past kMaxTableCodes entries (L*(2R+1)^2 > 12,288)
+//   is decoded by divisions instead, in the same kernel;
+// - all C channel loads of the thread's pixels are issued into registers
+//   before its first store (C a template constant for the 8- and 11-
+//   channel rows of splat fusion; other C in groups of 16 channels);
+// - the output is written with streaming stores (st.global.cs), so that
+//   it does not evict from L2 the source rows the winner and runner-up
+//   images both read.
+// tools/select_rows_variants.py times this design beside the previous one
+// (one thread a pixel, four divisions, scalar stores), a shared-memory
+// halo, and source variants of the constants below.
+constexpr int kSelectThreads = 256;
+constexpr int kSelectPix = 2;  // pixels a thread, horizontally adjacent
+constexpr int kSelectThreadsX = 32 / kSelectPix;  // a warp covers 32 columns
+constexpr int kSelectThreadsY = kSelectThreads / kSelectThreadsX;
+constexpr int kSelectGroup = 16;  // channels in registers, generic instance
+constexpr int kMaxTableCodes = 12288;  // 48 KB of shared memory
+constexpr bool kStreamStores = true;
+
+// kSelectPix int32 words, loaded or stored as one vector.
+template <int N> struct Words;
+template <> struct Words<1> { using I = int32_t; using U = uint32_t; };
+template <> struct Words<2> { using I = int2; using U = uint2; };
+template <> struct Words<4> { using I = int4; using U = uint4; };
+
+__device__ __forceinline__ void unpack(int32_t v, int32_t* w) { w[0] = v; }
+__device__ __forceinline__ void unpack(int2 v, int32_t* w) { w[0] = v.x; w[1] = v.y; }
+__device__ __forceinline__ void unpack(int4 v, int32_t* w) {
+  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+}
+template <int N>
+__device__ __forceinline__ typename Words<N>::U pack(const uint32_t* w);
+template <> __device__ __forceinline__ uint32_t pack<1>(const uint32_t* w) { return w[0]; }
+template <> __device__ __forceinline__ uint2 pack<2>(const uint32_t* w) {
+  return make_uint2(w[0], w[1]);
+}
+template <> __device__ __forceinline__ uint4 pack<4>(const uint32_t* w) {
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename T>
+__device__ __forceinline__ void put(T* p, T v) {
+  if (kStreamStores) {
+    __stcs(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+// The source offset of an in-range code from the target pixel's padded
+// position: layer l's channel 0, row R - dv, column R - du.
+__device__ __forceinline__ int code_source(int cd, int L, int C, int plane, int wp, int w2,
+                                           int R) {
+  const int l = cd % L, oc = cd / L;
+  return l * C * plane + (2 * R - oc / w2) * wp + (2 * R - oc % w2);
+}
+
+// kCh channels (0: any C, in groups of kSelectGroup); kVec: the vector
+// route (W % kSelectPix == 0, rows aligned); by_table: decode by the table
+// (the same for every thread).
+template <int kCh, bool kVec>
+__global__ void __launch_bounds__(kSelectThreads) flow_select_rows_kernel(
     const uint32_t* __restrict__ rows, const int32_t* __restrict__ code,
     uint32_t* __restrict__ out, int L, int C, int H, int W, int R,
-    int rows_bstride) {
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
+    int rows_bstride, bool by_table) {
+  extern __shared__ int table[];
+  const int w2 = 2 * R + 1, n_codes = L * w2 * w2;
+  const int wp = W + 2 * R, plane = (H + 2 * R) * wp, hw = H * W;
+  const int x0 = (blockIdx.x * kSelectThreadsX + threadIdx.x) * kSelectPix;
+  const int y = blockIdx.y * kSelectThreadsY + threadIdx.y;
   const int b = blockIdx.z;
-  if (x >= W || y >= H) return;
-  const int w2 = 2 * R + 1;
-  const int hw = H * W;
-  const int plane = (H + 2 * R) * (W + 2 * R);
-  const int cd = code[b * hw + y * W + x];
-  uint32_t* dst = out + b * C * hw + y * W + x;
-  if (cd < 0 || cd >= L * w2 * w2) {
-    for (int c = 0; c < C; ++c) dst[c * hw] = 0u;
-    return;
+  const bool live = y < H && x0 < W;
+  const int pix = b * hw + y * W + x0;
+  int32_t cd[kSelectPix];
+  if (kVec) {
+    if (live) {
+      unpack(__ldg(reinterpret_cast<const typename Words<kSelectPix>::I*>(code + pix)), cd);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSelectPix; ++j) cd[j] = live && x0 + j < W ? __ldg(code + pix + j) : -1;
   }
-  const int l = cd % L;
-  const int oc = cd / L;
-  const int dv = oc / w2 - R;
-  const int du = oc % w2 - R;
-  const uint32_t* src = rows + b * rows_bstride + l * C * plane +
-                        (y + R - dv) * (W + 2 * R) + (x + R - du);
-  for (int c = 0; c < C; ++c) dst[c * hw] = src[c * plane];
+  if (by_table) {
+    for (int i = threadIdx.y * kSelectThreadsX + threadIdx.x; i < n_codes; i += kSelectThreads) {
+      table[i] = code_source(i, L, C, plane, wp, w2, R);
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+  bool ok[kSelectPix];
+  int src[kSelectPix];
+#pragma unroll
+  for (int j = 0; j < kSelectPix; ++j) {
+    ok[j] = static_cast<unsigned>(cd[j]) < static_cast<unsigned>(n_codes);
+    const int at = ok[j] ? cd[j] : 0;
+    src[j] = (by_table ? table[at] : code_source(at, L, C, plane, wp, w2, R)) + j;
+  }
+  const int cn = kCh > 0 ? kCh : C;
+  const uint32_t* base = rows + b * rows_bstride + y * wp + x0;
+  uint32_t* dst = out + b * cn * hw + y * W + x0;
+  constexpr int kRegs = kCh > 0 ? kCh : kSelectGroup;
+  for (int c0 = 0; c0 < cn; c0 += kRegs) {
+    uint32_t v[kRegs][kSelectPix];
+#pragma unroll
+    for (int c = 0; c < kRegs; ++c) {
+#pragma unroll
+      for (int j = 0; j < kSelectPix; ++j) {
+        v[c][j] = ok[j] && (kCh > 0 || c0 + c < cn)
+                      ? __ldg(base + src[j] + (c0 + c) * plane) : 0u;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kRegs; ++c) {
+      if (kCh == 0 && c0 + c >= cn) break;
+      uint32_t* d = dst + (c0 + c) * hw;
+      if (kVec) {
+        put(reinterpret_cast<typename Words<kSelectPix>::U*>(d), pack<kSelectPix>(v[c]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < kSelectPix; ++j) {
+          if (x0 + j < W) put(d + j, v[c][j]);
+        }
+      }
+    }
+  }
 }
 
 dim3 grid_for(int B, int H, int W) {
@@ -336,13 +460,36 @@ int splat_argmin2_launch(const void* key, const void* off, void* bk,
   return static_cast<int>(cudaGetLastError());
 }
 
+// design: null, or 5 ints for the pixels a thread, the decode (1 table, 0
+// divisions), the store's bytes, the channel instance (C, or 0 for the
+// generic one) and the blocks.
 int flow_select_rows_launch(const void* rows, const void* code, void* out,
                             int B, int L, int C, int H, int W, int R,
-                            int rows_bstride, void* stream) {
-  flow_select_rows_kernel<<<grid_for(B, H, W), dim3(kBlockX, kBlockY), 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+                            int rows_bstride, void* design, void* stream) {
+  const int n_codes = L * (2 * R + 1) * (2 * R + 1);
+  const bool table = n_codes <= kMaxTableCodes;
+  const bool vec = W % kSelectPix == 0 &&
+                   reinterpret_cast<uintptr_t>(code) % (4 * kSelectPix) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (4 * kSelectPix) == 0;
+  const int ch = C == 8 || C == 11 ? C : 0;
+  const dim3 block(kSelectThreadsX, kSelectThreadsY);
+  const dim3 grid((W + kSelectThreadsX * kSelectPix - 1) / (kSelectThreadsX * kSelectPix),
+                  (H + kSelectThreadsY - 1) / kSelectThreadsY, B);
+  const size_t smem = table ? sizeof(int) * n_codes : 0;
+  auto kernel = vec ? flow_select_rows_kernel<0, true> : flow_select_rows_kernel<0, false>;
+  if (ch == 8) kernel = vec ? flow_select_rows_kernel<8, true> : flow_select_rows_kernel<8, false>;
+  if (ch == 11) kernel = vec ? flow_select_rows_kernel<11, true> : flow_select_rows_kernel<11, false>;
+  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), static_cast<const int32_t*>(code),
-      static_cast<uint32_t*>(out), L, C, H, W, R, rows_bstride);
+      static_cast<uint32_t*>(out), L, C, H, W, R, rows_bstride, table);
+  if (design) {
+    int* d = static_cast<int*>(design);
+    d[0] = kSelectPix;
+    d[1] = table ? 1 : 0;
+    d[2] = vec ? 4 * kSelectPix : 4;
+    d[3] = ch;
+    d[4] = static_cast<int>(grid.x * grid.y * grid.z);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,7 +17,8 @@ launches the kernel or raises. Every launch adds one to
 agree bit for bit. :func:`splat_argmin2`'s kernel elects each tile's pairs
 in shared memory from the sources that land on it (a lexicographic
 minimum of ``(key, visit index)``, see the source); the other two read one
-source a pixel.
+source a pixel, :func:`flow_select_rows` two adjacent pixels a thread
+through a shared-memory table of each code's source offset.
 
 Padding convention (the JAX module's): callers pad the last two dims by
 ``R`` on each side (key=+inf, code/off=-1, rows=0) and pass
@@ -44,9 +45,10 @@ launch_counts: Dict[str, int] = {
     "splat_argmin2": 0,
     "flow_select_rows": 0,
 }
-# The launch parameters of the last splat_argmin2 launch: the tile of
-# target pixels a block elects and the blocks.
-kernel_design: Dict[str, Dict[str, int]] = {}
+# The launch parameters of the last launch of splat_argmin2 (the tile of
+# target pixels a block elects and the blocks) and of flow_select_rows
+# (pixels a thread, decode route, store width, channel instance, blocks).
+kernel_design: Dict[str, Dict[str, object]] = {}
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
@@ -75,7 +77,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "window_read_codes_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "splat_argmin2_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "flow_select_rows_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "flow_select_rows_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 
@@ -284,9 +286,14 @@ def flow_select_rows(
     bstride = _batch_stride(name, rows, "rows")
     _contiguous(name, ("code", code))
     out = torch.empty((b, c, h, w), dtype=torch.float32, device=code.device)
+    design = (ctypes.c_int * 5)()
     _launch(
         name, "flow_select_rows_launch",
         rows.data_ptr(), code.data_ptr(), out.data_ptr(), b, layers, c, h, w, r,
-        bstride,
+        bstride, ctypes.addressof(design),
+    )
+    kernel_design[name] = dict(
+        pixels_a_thread=design[0], decode="table" if design[1] else "divisions",
+        store_bytes=design[2], channel_instance=design[3] or "generic", blocks=design[4],
     )
     return out

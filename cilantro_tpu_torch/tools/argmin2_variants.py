@@ -123,12 +123,12 @@ def main() -> int:
     k = CameraIntrinsics.kinect_640()
     depths, _ = synthetic_sequence(6, cs.H, cs.W, k, seed=0)
     frame = {}
-    with cs.argmin2_recorded(sf, frame):
+    with cs.path_recorded(sf, frame):
         sf.run_splat_sequence(depths, k, cfg=sf.SplatConfig(radius=cs.RADIUS, margin=cs.MARGIN),
                               device="cuda")
     cases = (
         ("tie-heavy random", cs.argmin2_tie_case(np.random.default_rng(0), dev)),
-        ("splat path frame", (frame["key"], frame["off"])),
+        ("splat path frame", frame["splat_argmin2"][0]),
     )
     card = cs.card_line()
     try:

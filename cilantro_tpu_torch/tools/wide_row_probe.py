@@ -14,9 +14,9 @@ counterpart of the TPU probe's ``copy_kernel``, ``o = 2·x`` over the
 index streams are aligned 8-row runs, as the pool's are.
 
 :func:`scale2` launches ``csrc/probe_kernels.cu`` for a CUDA tensor (one
-thread per float4; bound by bytes: each element read and written once) and
-runs its plain version ``2.0 * x`` for a CPU tensor. Importing this module
-runs nothing.
+thread per float4 over a full grid, streaming loads; bound by bytes: each
+element read and written once) and runs its plain version ``2.0 * x`` for
+a CPU tensor. Importing this module runs nothing.
 """
 
 from __future__ import annotations

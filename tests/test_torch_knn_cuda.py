@@ -265,11 +265,16 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
 
 
 @pytest.mark.cuda
-def test_scale2_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("shape", ((4,), (4 * 256 * 2 + 4,), (4 * 256 * 4 + 4,), (1000, 128),
+                                   (53760, 128)))
+def test_scale2_kernel_matches_plain(shape, cuda):
+    """Sizes that leave a partial last block for 1, 2 and 4 float4 words
+    a thread (4 floats; 2 or 4 blocks of 256 × 1 and one word), a whole
+    number of blocks (1000 × 128) and the probe's (CAP/8, 128) view."""
     from cilantro_tpu_torch.tools import wide_row_probe as probe
 
-    x = torch.randn((1000, 128), device=cuda)
-    x[0, :4] = torch.tensor([float("inf"), float("nan"), -0.0, 3e38])
+    x = torch.randn(shape, device=cuda)
+    x.view(-1)[:4] = torch.tensor([float("inf"), float("nan"), -0.0, 3e38])
     before = probe.launch_counts["scale2"]
     out = probe.scale2(x)
     torch.cuda.synchronize()

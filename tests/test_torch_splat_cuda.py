@@ -14,6 +14,7 @@ import torch
 
 from cilantro_tpu_torch.slam import splat
 from test_torch_argmin2_election import edge_case_inputs
+from test_torch_select_rows_decode import BATCHES, CODE_KINDS, PIX, select_rows_case
 
 LAYERS, H, W = 2, 64, 80
 
@@ -58,25 +59,54 @@ def test_cuda_argmin2_matches_plain(r, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", (2, 4))
-def test_cuda_select_rows_matches_plain(r, cuda):
-    """Winner and runner-up codes in one launch over a broadcast map."""
-    rng = np.random.default_rng(r)
-    w2 = 2 * r + 1
-    rows = torch.from_numpy(
-        rng.standard_normal((1, LAYERS, 8, H + 2 * r, W + 2 * r)).astype(np.float32)
-    ).expand(2, -1, -1, -1, -1)
-    code = torch.from_numpy(
-        rng.integers(-1, LAYERS * w2 * w2, size=(2, H, W)).astype(np.int32)
-    )
-    plain = splat.flow_select_rows(rows, code, radius=r)
-    dev = _launched(
-        "flow_select_rows",
-        lambda: splat.flow_select_rows(
-            rows[:1].to(cuda).expand(2, -1, -1, -1, -1), code.to(cuda), radius=r
-        ),
-    )
-    np.testing.assert_array_equal(_bits(dev), _bits(plain))
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("kind", CODE_KINDS)
+@pytest.mark.parametrize("w", (80, 81))
+@pytest.mark.parametrize("c", (8, 11, 3, 20))
+@pytest.mark.parametrize("r", (2, 4, 8))
+def test_cuda_select_rows_matches_plain(r, c, w, kind, batch, cuda):
+    """The 8- and 11-channel instances and the generic one (3 channels; 20
+    in two groups), the vector (W = 80) and scalar (W = 81) routes, codes
+    random, all -1, out of range and in smooth patches, a broadcast map
+    read by two code images and one contiguous map."""
+    rows, code = select_rows_case(kind, batch, r, c, w, h=H)
+    dev = _select_rows_on_card(rows, code.to(cuda), r, cuda)
+    np.testing.assert_array_equal(_bits(dev), _bits(splat.flow_select_rows(rows, code, radius=r)))
+    design = splat.kernel_design["flow_select_rows"]
+    assert design["store_bytes"] == (4 * PIX if w % PIX == 0 else 4)
+    assert design["channel_instance"] == (c if c in (8, 11) else "generic")
+    assert design["decode"] == "table"
+
+
+def _select_rows_on_card(rows, code_d, r, cuda):
+    """Kernel output of ``rows`` (moved to the card; a broadcast map stays
+    one) and codes already on the card."""
+    rows_d = rows[:1].to(cuda).expand(2, -1, -1, -1, -1) if rows.shape[0] == 2 else rows.to(cuda)
+    return _launched("flow_select_rows", lambda: splat.flow_select_rows(rows_d, code_d, radius=r))
+
+
+@pytest.mark.cuda
+def test_cuda_select_rows_unaligned_codes(cuda):
+    """Codes one word past a 16-byte boundary take the scalar route."""
+    r = 4
+    rows, code = select_rows_case("random", "B=1 contiguous", r, 8, 80, h=H)
+    buf = torch.zeros(code.numel() + 1, dtype=torch.int32, device=cuda)
+    buf[1:] = code.reshape(-1).to(cuda)
+    code_d = buf[1:].view(code.shape)
+    assert code_d.data_ptr() % 16 == 4
+    dev = _select_rows_on_card(rows, code_d, r, cuda)
+    np.testing.assert_array_equal(_bits(dev), _bits(splat.flow_select_rows(rows, code, radius=r)))
+    assert splat.kernel_design["flow_select_rows"]["store_bytes"] == 4
+
+
+@pytest.mark.cuda
+def test_cuda_select_rows_division_decode(cuda):
+    """A table past 12,288 codes (L = 2, R = 39) is decoded by divisions."""
+    r = 39
+    rows, code = select_rows_case("smooth", "B=2 broadcast", r, 3, 16, h=12)
+    dev = _select_rows_on_card(rows, code.to(cuda), r, cuda)
+    np.testing.assert_array_equal(_bits(dev), _bits(splat.flow_select_rows(rows, code, radius=r)))
+    assert splat.kernel_design["flow_select_rows"]["decode"] == "divisions"
 
 
 @pytest.mark.cuda
