@@ -23,7 +23,12 @@ in order; any failure raises and exits non-zero without the final line:
    kernels on the inputs of its last call (recorded on the way), bit for
    bit against its plain version and timed as in phase 2 beside its byte
    bound and, for the two redesigned ones, the previous design's time;
-   then a per-stage time split and a profiler window (informational);
+   the rotation kernel (``project_to_rotation``, one launch a GN
+   iteration: launches equal to the window reads) bit for bit against its
+   plain version on the matrix of its last call and on 4096 random ones,
+   timed beside its byte bound and the SVD route it replaced (host clock:
+   that route syncs); then a per-stage time split and a profiler window
+   (informational);
 4. run the first 4 frames through the same entry point on the CPU (the
    plain versions) and require the poses to agree within 1e-4 m / 1e-4 rad;
 5. hold each nn1 kernel against its plain version on the card, bit for bit:
@@ -113,14 +118,29 @@ in order; any failure raises and exits non-zero without the final line:
     least 99% of the points valid in both;
 20. ``scale2``, the wide-row probe's copy kernel, once on the (CAP/8, 128)
     pool view, bit for bit against ``2.0 * x``, beside ``torch.mul`` (five
-    alternating pairs, the medians) and its byte bound.
+    alternating pairs, the medians) and its byte bound;
+21. ``run_splat_sequence_scanned`` on phase 3's frames: one graph-form
+    step run under ``torch.cuda.set_sync_debug_mode("error")``, then the
+    host loop and the CUDA-graph replay in two alternating pairs (loop,
+    graph, graph, loop; host ms a frame, the graph's best of 3); the
+    graph's device ms a frame (CUDA events), the same with one GN
+    iteration (so the cost of an iteration and of the masked ones) and its
+    profile beside phase 3's busy time; launches a replay (6 window reads
+    and rotations, one election and one row rebuild); the GN iterations
+    kept and masked; ATE < 2e-3 m and poses within 1e-5 of phase 3's, bit
+    identity reported;
+22. ``run_fusion_sequence_scanned`` on phase 10's inputs, measured as
+    phase 21: ATE < 2e-4 m, poses within 1e-4 of phase 10's, and the
+    gather kernel launched 2 + 6 times a replay, (2 + 6) × 15 a run.
 
 Each kernel's launch count in the kernels line comes from the path that
 runs it (counts set to 0 just before that path and read just after):
 splat fusion for the splat kernels, phase 6 for the compact kernel, phase
 7 for the masked one, phase 8 for the fused one, phase 10 for the gather,
 phase 14 for the compact kNN kernel, phase 16 for the full one, phase 20
-for ``scale2``.
+for ``scale2``, splat fusion for the rotation kernel (which replaces no
+Pallas kernel: ``jnp.linalg.svd`` inside XLA). Phases 21-22 count a
+replay's launches at capture, where the wrappers run.
 
 Every line of standard output before the last two is one JSON object. The
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -1571,12 +1591,221 @@ def probe_kernel_check():
     return entry
 
 
+# ---------------------------------------------------------------------------
+# The rotation kernel and the scanned drivers (CUDA-graph replays).
+# ---------------------------------------------------------------------------
+
+# Operations of one project_to_rotation (csrc/rotation_kernels.cu): AᵀA 45,
+# 12 Jacobi rotations of 42, the vectors and the product 148; a division or
+# square root counts one.
+ROTATION_OPS = 697
+ROTATION_BYTES = 72  # one 3x3 float32 matrix read, one written
+
+
+@contextlib.contextmanager
+def rotation_recorded(kept: dict):
+    """A context in which each ``reproject_rigid`` keeps the matrix it
+    projects in ``kept["project_to_rotation"]``."""
+    from unittest import mock
+
+    from cilantro_tpu_torch.core import transforms as tfm
+
+    real = tfm.project_to_rotation
+
+    def recording(linear):
+        kept["project_to_rotation"] = linear
+        return real(linear)
+
+    with mock.patch.object(tfm, "project_to_rotation", recording):
+        yield
+
+
+def rotation_kernel_check(tfm, path_linear):
+    """Phase 3c: the rotation kernel against its plain version, bit for
+    bit, on the matrix of its last call on the splat path and on 4096
+    random matrices, timed as in phase 2 beside its bound; the SVD route it
+    replaced (which syncs) by the host clock. Returns the path case's
+    kernels-line entry."""
+    rng = np.random.default_rng(1)
+    batch = torch.from_numpy(rng.standard_normal((4096, 3, 3)).astype(np.float32)).to(path_linear.device)
+
+    def svd_route(x):
+        u, _, vt = torch.linalg.svd(x)
+        sign = torch.where(torch.linalg.det(u @ vt) < 0, -1.0, 1.0)
+        return torch.cat([u[..., :, :-1], u[..., :, -1:] * sign[..., None, None]], -1) @ vt
+
+    entry = None
+    for case, x in (("splat path, last GN iteration", path_linear), ("4096 random matrices", batch)):
+        kernel = lambda: tfm.project_to_rotation(x)  # noqa: E731
+        plain = lambda: tfm.project_to_rotation_plain(x)  # noqa: E731
+        k_out, p_out = kernel(), plain()
+        torch.cuda.synchronize()
+        assert_same_bits(f"project_to_rotation, {case}", (k_out,), (p_out,))
+        n = x.numel() // 9
+        by_bytes = ROTATION_BYTES * n / HBM_BYTES_PER_S
+        by_ops = ROTATION_OPS * n / F32_OPS_PER_S
+        rec = dict(
+            name="project_to_rotation", route="cuda", source="cilantro_tpu_torch/csrc/rotation_kernels.cu",
+            replaces="cilantro_tpu/core/transforms.py:147", max_abs_err=max_abs_err(k_out, p_out),
+            ms=device_ms(kernel), plain_ms=device_ms(plain), bound_ms=max(by_bytes, by_ops) * 1e3,
+            bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=None,
+        )
+        emit(phase="kernel_vs_plain", tolerance="bit-exact", case=case, matrices=n,
+             note="replaces jnp.linalg.svd inside XLA (no Pallas kernel); no single PyTorch call",
+             svd_route_host_ms=host_ms(lambda: svd_route(x)),
+             svd_route_max_abs_diff=max_abs_err(k_out, svd_route(x)), **rec)
+        entry = entry or rec
+    return entry
+
+
+def no_host_sync(name, fn):
+    """Run ``fn`` once under ``torch.cuda.set_sync_debug_mode("error")``:
+    a step that a graph capture must hold may not wait on the host."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    emit(phase="no_host_sync", step=name)
+
+
+def scanned_phase(name, run_loop, run_graph, loop_poses, gt, max_diff, want_launches, ate_bound,
+                  loop_busy_ms, card):
+    """Phases 21-22, shared: host loop and graph replay in two alternating
+    pairs (loop, graph, graph, loop); the graph's poses against the host
+    loop's of the main path; launches a replay; the GN or ICP iterations
+    kept and masked; the device ms a frame of the graph (CUDA events), of
+    the graph captured with one iteration (the masked iterations' cost is
+    the difference over 5 iterations), of its kernels (the profiler; one
+    driver call executes 4 runs of the frames and the warm-up step) and of
+    the host loop's kernels (the main path's profile). ``run_graph(stats,
+    iterations)`` runs the scanned driver with that iteration cap (None:
+    the configuration's) and returns its poses and host s a frame."""
+    from cilantro_tpu_torch.slam.driver import ate_rmse
+
+    ms = {"loop": [], "graph": []}
+    for kind in ("loop", "graph", "graph", "loop"):
+        if kind == "loop":
+            ms[kind].append(run_loop() * 1e3)
+            continue
+        stats = {}
+        poses, spf = run_graph(stats, None)
+        ms[kind].append(spf * 1e3)
+    useful = stats["iterations"]
+    n_it = want_launches["project_to_rotation"]
+    masked = [n_it - u for u in useful]
+    if stats["launches_per_frame"] != want_launches:
+        raise AssertionError(f"{name}: launches a replay {stats['launches_per_frame']}, want {want_launches}")
+    ate = ate_rmse(poses, gt, device="cuda")
+    diff = float(np.abs(np.stack(poses) - np.stack(loop_poses)).max())
+    if not ate < ate_bound:
+        raise AssertionError(f"{name}: ATE {ate} m not below {ate_bound} m")
+    if not diff <= max_diff:
+        raise AssertionError(f"{name}: poses {diff} from the host loop's, bound {max_diff}")
+    one = {}
+    run_graph(one, 1)
+    dev_ms = stats["device_seconds_per_frame"] * 1e3
+    per_iteration_ms = (dev_ms - one["device_seconds_per_frame"] * 1e3) / (n_it - 1)
+    try:
+        busy = profile_once(lambda: run_graph({}, None), statistics.median(ms["graph"]),
+                            runs=4 * len(useful) + 1)
+    except Exception as e:  # informational: report and go on
+        busy = {"device_busy": "not measured", "error": f"{type(e).__name__}: {e}"}
+    frames = len(useful)
+    emit(
+        phase=name, captured=True, frames=frames,
+        host_ms_per_frame_loop=ms["loop"], host_ms_per_frame_graph=ms["graph"],
+        device_ms_per_frame_graph=dev_ms,
+        device_ms_per_frame_graph_one_iteration=one["device_seconds_per_frame"] * 1e3,
+        device_ms_per_iteration=per_iteration_ms,
+        device_ms_masked_per_frame=statistics.mean(masked) * per_iteration_ms,
+        device_busy_ms_per_frame_loop=loop_busy_ms,
+        useful_iterations=useful, masked_iterations=masked,
+        launches_per_replay=stats["launches_per_frame"],
+        launches_per_run={k: v * frames for k, v in stats["launches_per_frame"].items()},
+        ate_m=ate, max_pose_diff_vs_loop=diff,
+        bit_identical_to_loop=bool(np.array_equal(np.stack(poses), np.stack(loop_poses))),
+        graph_profile=busy, card=card,
+    )
+    return poses
+
+
+def scanned_splat_path(sf, depths, gt, k, cfg, loop_poses, loop_busy_ms, card):
+    """Phase 21: ``run_splat_sequence_scanned`` on phase 3's frames."""
+    import dataclasses
+
+    dev = torch.device("cuda")
+    d = [torch.as_tensor(x, device=dev) for x in depths[:2]]
+    smap = sf.init_splat_map(*sf._frame_images(d[0], k, H, W), cfg)
+    no_host_sync("splat fusion step, graph form", lambda: sf._fusion_step_counted(
+        smap, d[1], sf.identity(3, device=dev), k, cfg=cfg, loop="graph"))
+
+    def run_loop():
+        return sf.run_splat_sequence(depths, k, cfg=cfg, device="cuda")[2]
+
+    def run_graph(stats, iterations):
+        c = dataclasses.replace(cfg, icp_iterations=iterations or cfg.icp_iterations)
+        _, poses, spf, per_frame = sf.run_splat_sequence_scanned(depths, k, cfg=c, device="cuda", stats=stats)
+        if any(f != {n: stats["launches_per_frame"][n] for n in f} for f in per_frame):
+            raise AssertionError("scanned splat: per-frame launch dicts disagree with the replay's")
+        return poses, spf
+
+    n = cfg.icp_iterations
+    return scanned_phase(
+        "scanned_splat", run_loop, run_graph, loop_poses, gt, 1e-5,
+        {"window_read_codes": n, "splat_argmin2": 1, "flow_select_rows": 1, "project_to_rotation": n},
+        2e-3, loop_busy_ms, card,
+    )
+
+
+def scanned_pool_path(depths, gt, k, loop_poses, loop_busy_ms, card):
+    """Phase 22: ``run_fusion_sequence_scanned`` on phase 10's inputs."""
+    import dataclasses
+
+    from cilantro_tpu_torch.core.rgbd import depth_to_points_normals
+    from cilantro_tpu_torch.core.transforms import identity
+    from cilantro_tpu_torch.slam import fusion
+    from cilantro_tpu_torch.slam.driver import run_fusion_sequence, run_fusion_sequence_scanned
+
+    dev = torch.device("cuda")
+    cfg = pool_config()
+    p0, n0, v0 = depth_to_points_normals(torch.as_tensor(depths[0], device=dev), k)
+    fmap = fusion.init_map_from_frame(POOL_CAPACITY, p0, n0, None, v0)
+    pose0 = identity(3, device=dev)
+    _, packed = fusion.seed_localize_target(fmap, pose0, k, H, W)
+    p1, n1, v1 = depth_to_points_normals(torch.as_tensor(depths[1], device=dev), k)
+    no_host_sync("pool fusion step, graph form", lambda: fusion.fusion_step(
+        fmap, p1, n1, None, v1, pose0, k, cached_packed_target=packed, height=H, width=W,
+        cfg=cfg, loop="graph"))
+
+    def run_loop():
+        return run_fusion_sequence(depths, k, map_capacity=POOL_CAPACITY, cfg=cfg,
+                                   device="cuda")[1].seconds_per_frame
+
+    def run_graph(stats, iterations):
+        c = dataclasses.replace(cfg, icp_iterations=iterations or cfg.icp_iterations)
+        _, met = run_fusion_sequence_scanned(depths, k, map_capacity=POOL_CAPACITY, cfg=c,
+                                             device="cuda", stats=stats)
+        stats["iterations"] = met.icp_iterations[1:]
+        return met.poses, met.seconds_per_frame
+
+    n = cfg.icp_iterations
+    return scanned_phase(
+        "scanned_pool", run_loop, run_graph, loop_poses, gt, 1e-4,
+        {"coalesced_gather": 2 + n, "project_to_rotation": n}, 2e-4, loop_busy_ms, card,
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cilantro_tpu_torch import native
+    from cilantro_tpu_torch.core import transforms as tfm
     from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
     from cilantro_tpu_torch.slam import splat
     from cilantro_tpu_torch.slam import splat_fusion as sf
@@ -1607,10 +1836,14 @@ def main() -> int:
     emit(phase="input", frames=FRAMES, height=H, width=W, render_s=time.perf_counter() - t0)
 
     splat.reset_launch_counts()
+    tfm.reset_launch_counts()
     frame_inputs = {}
-    with path_recorded(sf, frame_inputs):
+    with path_recorded(sf, frame_inputs), rotation_recorded(frame_inputs):
         smap, poses, spf, per_frame = sf.run_splat_sequence(depths, k, cfg=cfg, device="cuda")
     launches = dict(splat.launch_counts)
+    rotation_launches = tfm.launch_counts["project_to_rotation"]
+    if rotation_launches != launches["window_read_codes"]:
+        raise AssertionError(f"{rotation_launches} rotation launches, want one a GN iteration")
     ate = ate_rmse(poses, gt, device="cuda")
     pts, nrm, conf = sf.extract_cloud(smap)
     fused = FRAMES - 1
@@ -1637,9 +1870,14 @@ def main() -> int:
         ate_m=ate, live_surfels=len(pts), card=card,
     )
     path_frame_ms = path_frame_checks(splat, frame_inputs)
+    rotation = rotation_kernel_check(tfm, frame_inputs["project_to_rotation"])
+    rotation.update(launches=rotation_launches, path="splat fusion, 16 frames (one a GN iteration)")
     emit(phase="stage_split_ms_per_frame", card=card, **stage_split(sf, depths, k, cfg, dev))
+    splat_busy_ms = "not measured"
     try:
-        emit(phase="profile", card=card, **profile_window(sf, depths, k, cfg, dev, spf2 * 1e3))
+        prof = profile_window(sf, depths, k, cfg, dev, spf2 * 1e3)
+        splat_busy_ms = prof.get("device_kernel_ms", "not measured")
+        emit(phase="profile", card=card, **prof)
     except Exception as e:  # informational phase: report and go on
         emit(phase="profile", device_busy="not measured", error=f"{type(e).__name__}: {e}")
 
@@ -1691,9 +1929,11 @@ def main() -> int:
     gather_entry = dict(gathers["integrate_rows"], launches=gather_launches,
                         path="run_fusion_sequence, pool pipeline, 16 frames")
     emit(phase="pool_stage_split_ms_per_frame", card=card, **pool_stage_split(fusion, depths, k, dev))
+    pool_busy_ms = "not measured"
     try:
-        emit(phase="pool_profile", card=card,
-             **pool_profile(fusion, depths, k, dev, pool_met.seconds_per_frame * 1e3))
+        prof = pool_profile(fusion, depths, k, dev, pool_met.seconds_per_frame * 1e3)
+        pool_busy_ms = prof.get("device_kernel_ms", "not measured")
+        emit(phase="pool_profile", card=card, **prof)
     except Exception as e:  # informational phase: report and go on
         emit(phase="pool_profile", device_busy="not measured", error=f"{type(e).__name__}: {e}")
     try:
@@ -1725,10 +1965,14 @@ def main() -> int:
     # 20. The wide-row probe's kernel.
     probe = probe_kernel_check()
 
+    # 21-22. The scanned drivers: one step captured in a CUDA graph, replayed.
+    scanned_splat_path(sf, depths, gt, k, cfg, poses, splat_busy_ms, card)
+    scanned_pool_path(depths, gt, k, pool_met.poses, pool_busy_ms, card)
+
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]
     kernels.append(gather_entry)
-    kernels += [knn["knn_full"], knn["knn_compact"], probe]
+    kernels += [knn["knn_full"], knn["knn_compact"], probe, rotation]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

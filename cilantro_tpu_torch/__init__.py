@@ -13,9 +13,10 @@ The wrapper runs the plain version only for CPU tensors; for a CUDA tensor
 it launches the kernel or raises.
 
 Ported so far (splat fusion, rigid ICP, pool fusion, neighbour engines
-and normals):
+and normals, the scanned drivers):
 
-core            ``Transform`` and its ops, ``CameraIntrinsics``, depth →
+core            ``Transform`` and its ops (the closest rotation through a
+                kernel, ``csrc/rotation_kernels.cu``), ``CameraIntrinsics``, depth →
                 points (+normals), the z-buffer, ``PointCloud`` (with
                 kNN / radius normals), grids, covariance and MCD,
                 normal estimation, the wide-row gather kernel
@@ -31,7 +32,9 @@ slam            the splat kernels (``slam/splat.py``), splat fusion
                 (``slam/splat_fusion.py``), pool fusion
                 (``slam/fusion.py``), ``run_fusion_sequence``,
                 ``ate_rmse`` and ``synthetic_sequence``
-                (``slam/driver.py``)
+                (``slam/driver.py``), and both pipelines' scanned
+                drivers, one step captured in a CUDA graph and replayed
+                (``slam/scan.py``)
 interop         build port state from the JAX package's leaves (numpy)
 tools           the wide-row probe and its ``scale2`` kernel
 """

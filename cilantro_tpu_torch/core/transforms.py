@@ -8,11 +8,14 @@ agree to float32 roundoff.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
+from typing import Dict
 
 import torch
 
-from .. import resolve_device
+from .. import native, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +43,7 @@ class Transform:
         m = self.linear.new_zeros(self.linear.shape[:-2] + (d + 1, d + 1))
         m[..., :d, :d] = self.linear
         m[..., :d, d] = self.translation
-        m[..., d, d] = 1.0
+        m[..., d, d].fill_(1.0)  # a fill kernel: a CUDA graph capture can hold it
         return m
 
 
@@ -104,15 +107,127 @@ def transform_normals(
     return n
 
 
+_JACOBI_SWEEPS = 4
+
+launch_counts: Dict[str, int] = {"project_to_rotation": 0}
+
+
+def reset_launch_counts() -> None:
+    launch_counts["project_to_rotation"] = 0
+
+
+@functools.cache
+def _kernels() -> ctypes.CDLL:
+    lib = native.load("rotation_kernels")
+    fn = lib.project_to_rotation_launch
+    fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _dot3(x, y):
+    return (x[0] * y[0] + x[1] * y[1]) + x[2] * y[2]
+
+
+def _cross3(x, y):
+    return [x[1] * y[2] - x[2] * y[1], x[2] * y[0] - x[0] * y[2], x[0] * y[1] - x[1] * y[0]]
+
+
+def project_to_rotation_plain(linear: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`project_to_rotation` for ``(..., 3, 3)``:
+    ``R = u1 v1ᵀ + u2 v2ᵀ + (u1 × u2)(v1 × v2)ᵀ`` with ``v1, v2`` the
+    eigenvectors of ``AᵀA`` of its two largest eigenvalues (cyclic Jacobi,
+    4 sweeps, as :func:`.covariance.eigh_sym` but with ``1/sqrt`` for
+    ``rsqrt``), ``u1 = A v1 / ‖A v1‖`` and ``u2`` the unit part of ``A v2``
+    orthogonal to ``u1``. That is ``U diag(1, 1, det(U Vᵀ)) Vᵀ`` of the SVD,
+    with no third singular value needed. Exact zeros fall back so that
+    ``A = 0`` gives the identity, as the SVD does. Elementwise ops only,
+    each one rounding, in the kernel's order: the two agree bit for bit."""
+    a = [[linear[..., i, j] for j in range(3)] for i in range(3)]
+    b = [[_dot3([a[0][i], a[1][i], a[2][i]], [a[0][j], a[1][j], a[2][j]]) for j in range(3)]
+         for i in range(3)]
+    one, zero = torch.ones_like(a[0][0]), torch.zeros_like(a[0][0])
+    v = [[one if i == j else zero for j in range(3)] for i in range(3)]
+    for _ in range(_JACOBI_SWEEPS):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            r = 3 - p - q
+            apq = b[p][q]
+            theta = (b[q][q] - b[p][p]) / (2.0 * apq)
+            t = torch.where(theta >= 0, 1.0, -1.0) / (
+                torch.abs(theta) + torch.sqrt(theta * theta + 1.0)
+            )
+            t = torch.where(apq == 0, 0.0, t)
+            c = 1.0 / torch.sqrt(t * t + 1.0)
+            s = t * c
+            b[p][p] = b[p][p] - t * apq
+            b[q][q] = b[q][q] + t * apq
+            b[p][q] = b[q][p] = zero
+            brp, brq = b[r][p], b[r][q]
+            b[r][p] = b[p][r] = c * brp - s * brq
+            b[r][q] = b[q][r] = s * brp + c * brq
+            for k in range(3):
+                vkp, vkq = v[k][p], v[k][q]
+                v[k][p] = c * vkp - s * vkq
+                v[k][q] = s * vkp + c * vkq
+    # Largest eigenvalue (the first among equals) and smallest (the last).
+    d0, d1, d2 = b[0][0], b[1][1], b[2][2]
+    i1 = torch.where((d0 >= d1) & (d0 >= d2), 0, torch.where(d1 >= d2, 1, 2))
+    i3 = torch.where((d2 <= d1) & (d2 <= d0), 2, torch.where(d1 <= d0, 1, 0))
+    i2 = 3 - i1 - i3
+
+    def column(i):
+        return [torch.where(i == 0, v[k][0], torch.where(i == 1, v[k][1], v[k][2]))
+                for k in range(3)]
+
+    v1, v2 = column(i1), column(i2)
+    w1 = [_dot3(a[i], v1) for i in range(3)]
+    w2 = [_dot3(a[i], v2) for i in range(3)]
+    n1 = torch.sqrt(_dot3(w1, w1))
+    u1 = [torch.where(n1 > 0, w1[i] / n1, v1[i]) for i in range(3)]
+    d12, e12 = _dot3(u1, w2), _dot3(u1, v2)
+    w2 = [w2[i] - d12 * u1[i] for i in range(3)]
+    g = [v2[i] - e12 * u1[i] for i in range(3)]
+    n2, ng = torch.sqrt(_dot3(w2, w2)), torch.sqrt(_dot3(g, g))
+    h = _cross3(u1, v1)
+    u2 = [torch.where(n2 > 0, w2[i] / n2, torch.where(ng > 0, g[i] / ng, h[i]))
+          for i in range(3)]
+    u3, v3 = _cross3(u1, u2), _cross3(v1, v2)
+    rows = [torch.stack([(u1[i] * v1[j] + u2[i] * v2[j]) + u3[i] * v3[j] for j in range(3)], -1)
+            for i in range(3)]
+    return torch.stack(rows, -2)
+
+
 def project_to_rotation(linear: torch.Tensor) -> torch.Tensor:
-    """Closest rotation (SVD, det-sign-corrected)."""
-    u, _, vt = torch.linalg.svd(linear)
-    r = torch.einsum("...ij,...jk->...ik", u, vt)
-    det = torch.linalg.det(r)
-    # Flip the last column of U where det < 0 to land in SO(D).
-    sign = torch.where(det < 0, -1.0, 1.0).to(u.dtype)
-    u_fix = torch.cat([u[..., :, :-1], u[..., :, -1:] * sign[..., None, None]], -1)
-    return torch.einsum("...ij,...jk->...ik", u_fix, vt)
+    """Closest rotation (det-sign-corrected SVD ``U diag(1, .., det) Vᵀ``).
+    3×3 float32 matrices on the card go through the
+    ``csrc/rotation_kernels.cu`` kernel, which never waits on the host (a
+    GN loop captured in a CUDA graph re-projects through it); on the CPU
+    they take its plain version. Other sizes and types take the SVD."""
+    if linear.shape[-2:] != (3, 3) or linear.dtype != torch.float32:
+        u, _, vt = torch.linalg.svd(linear)
+        r = torch.einsum("...ij,...jk->...ik", u, vt)
+        det = torch.linalg.det(r)
+        # Flip the last column of U where det < 0 to land in SO(D).
+        sign = torch.where(det < 0, -1.0, 1.0).to(u.dtype)
+        u_fix = torch.cat([u[..., :, :-1], u[..., :, -1:] * sign[..., None, None]], -1)
+        return torch.einsum("...ij,...jk->...ik", u_fix, vt)
+    name = "project_to_rotation"
+    if native.on_cpu(name, linear):
+        return project_to_rotation_plain(linear)
+    src = linear.contiguous()
+    out = torch.empty_like(src)
+    n = src.numel() // 9
+    if n == 0:
+        return out
+    if n >= 2**31 // 9:
+        raise ValueError(f"{name}: {n} matrices, the kernel indexes with 32 bits")
+    err = _kernels().project_to_rotation_launch(
+        src.data_ptr(), out.data_ptr(), n, torch.cuda.current_stream().cuda_stream
+    )
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    launch_counts[name] += 1
+    return out
 
 
 def reproject_rigid(tf: Transform) -> Transform:

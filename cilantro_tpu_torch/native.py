@@ -25,7 +25,10 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("splat_kernels", "nn1_kernels", "gather_kernels", "knn_kernels", "probe_kernels")
+SOURCES = (
+    "splat_kernels", "nn1_kernels", "gather_kernels", "knn_kernels", "probe_kernels",
+    "rotation_kernels",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -5,7 +5,9 @@ Each iteration updates the correspondences (one nn1 pass, or one
 projective lookup) and the estimate, until the update norm
 ``‖ΔR − I‖ + ‖Δt‖`` falls below the tolerance or the iteration budget runs
 out. The JAX package's ``lax.while_loop`` is a Python loop here with one
-host read of the update norm per iteration.
+host read of the update norm per iteration; :func:`icp_projective_packed`
+also has a fixed-count form with a device flag, which a CUDA graph can
+hold.
 
 On CUDA, a gated 3-D problem of Q·M ≥ 2²⁶ pairs builds a Morton-tile prune
 plan once (the dst cloud never moves) and each pass runs the compact nn1
@@ -333,26 +335,35 @@ def icp_projective_packed(
     convergence_tol: float = 5e-4,
     max_gn_iterations: int = 1,
     max_corr_dist_sq: Optional[float] = 0.01,
+    loop: str = "host",
 ) -> ICPResult:
     """Projective ICP over a packed per-pixel target: the loop shared by
     :func:`icp_projective` and fusion's localize. Each iteration's gather
     goes through :func:`..core.coalesced.coalesced_gather`.
     ``metric="combined"`` with source normals and a target with normals
-    runs the symmetric metric."""
+    runs the symmetric metric.
+
+    ``loop`` picks one of two forms of one iteration body: ``"host"``
+    reads the update norm back once an iteration and stops early;
+    ``"graph"`` runs all ``max_iterations`` and never waits on the host (a
+    CUDA graph can hold it): an iteration's results are kept only while
+    the JAX loop's condition holds (fewer than ``max_iterations`` and the
+    last update norm at or above the tolerance), so ``iterations``,
+    ``delta_norm`` and ``num_correspondences`` are those of the last kept
+    iteration, counted on the device. With the same arithmetic the two
+    forms agree bit for bit."""
     from ..correspondence.projective import find_projective_correspondences_packed
 
     if metric not in ("point_to_point", "combined"):
         raise ValueError(f"unknown projective-ICP metric {metric!r}")
+    if loop not in ("host", "graph"):
+        raise ValueError(f"unknown loop form {loop!r}")
     dev = src_points.device
     if init is None:
         init = identity(src_points.shape[1], dtype=src_points.dtype, device=dev)
     use_symmetric = metric == "combined" and src_normals is not None and target_has_normals
 
-    tf = init
-    dn = torch.tensor(float("inf"), dtype=src_points.dtype, device=dev)
-    it = 0
-    ncorr = torch.zeros((), dtype=torch.int32, device=dev)
-    while it < max_iterations and dn.item() >= convergence_tol:
+    def body(tf: Transform):
         s, dgt, ngt, w = find_projective_correspondences_packed(
             src_points, packed_target, intrinsics, height, width, tf=tf,
             src_valid=src_valid, max_distance=max_corr_dist_sq,
@@ -371,13 +382,32 @@ def icp_projective_packed(
             )
         else:
             delta, _ = estimate_rigid_point_to_point(s, dgt, w)
-        tf = reproject_rigid(compose(delta, tf))
-        dn = _delta_norm(delta)
-        it += 1
-        ncorr = torch.sum(w).to(torch.int32)
+        return reproject_rigid(compose(delta, tf)), _delta_norm(delta), torch.sum(w).to(torch.int32)
+
+    tf = init
+    dn = torch.full((), float("inf"), dtype=src_points.dtype, device=dev)
+    ncorr = torch.zeros((), dtype=torch.int32, device=dev)
+    if loop == "host":
+        it = 0
+        while it < max_iterations and dn.item() >= convergence_tol:
+            tf, dn, ncorr = body(tf)
+            it += 1
+        iterations = torch.tensor(it, dtype=torch.int32, device=tf.linear.device)
+    else:
+        iterations = torch.zeros((), dtype=torch.int32, device=dev)
+        for _ in range(max_iterations):
+            active = dn >= convergence_tol
+            new_tf, new_dn, new_ncorr = body(tf)
+            tf = Transform(
+                torch.where(active, new_tf.linear, tf.linear),
+                torch.where(active, new_tf.translation, tf.translation),
+            )
+            dn = torch.where(active, new_dn, dn)
+            ncorr = torch.where(active, new_ncorr, ncorr)
+            iterations = iterations + active.to(torch.int32)
     return ICPResult(
         transform=tf,
-        iterations=torch.tensor(it, dtype=torch.int32, device=tf.linear.device),
+        iterations=iterations,
         delta_norm=dn,
         converged=dn < convergence_tol,
         num_correspondences=ncorr,

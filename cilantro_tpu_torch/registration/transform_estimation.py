@@ -15,7 +15,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.transforms import Transform, axis_angle_to_rotation, compose, skew3
+from ..core.transforms import (
+    Transform,
+    axis_angle_to_rotation,
+    compose,
+    project_to_rotation,
+    skew3,
+)
 
 _EPS = 1e-12
 
@@ -54,11 +60,7 @@ def estimate_rigid_point_to_point(
     cd = dst - mu_d
     # Cross-covariance C = Σ w d̃ s̃ᵀ  → R = U diag(1..det) Vᵀ.
     c = torch.einsum("n,ni,nj->ij", w, cd, cs)
-    u, _, vt = torch.linalg.svd(c)
-    det = torch.linalg.det(u @ vt)
-    sign = torch.where(det < 0, -1.0, 1.0).to(u.dtype)
-    u_fix = torch.cat([u[:, :-1], u[:, -1:] * sign], dim=1)
-    r = u_fix @ vt
+    r = project_to_rotation(c)
     t = mu_d - r @ mu_s
     valid = torch.sum(w > 0) >= d
     return Transform(r, t), valid
@@ -90,8 +92,11 @@ def estimate_affine_point_to_point(
 
 
 def _solve_normal_equations(jtj, jtr, dof, damping=0.0):
+    """``solve_ex`` without its error check: ``solve`` checks the info
+    code on the host, which a CUDA graph capture cannot hold. The damping
+    keeps ``jtj`` regular."""
     jtj = jtj + (damping + _EPS) * _eye(dof, jtj)
-    return torch.linalg.solve(jtj, jtr)
+    return torch.linalg.solve_ex(jtj, jtr, check_errors=False)[0]
 
 
 def _gn_accumulate_3d(src, dst, dst_normals, w_pp, w_pl, omega_points=None):

@@ -1,7 +1,8 @@
 """Fusion-sequence driver, trajectory metric and synthetic input (port of
 ``cilantro_tpu/slam/driver.py``).
 
-:func:`run_fusion_sequence` is the host loop of the pool pipeline.
+:func:`run_fusion_sequence` is the host loop of the pool pipeline,
+:func:`run_fusion_sequence_scanned` its CUDA-graph replay.
 :func:`synthetic_sequence` is a verbatim copy of the JAX package's numpy
 renderer: for the same arguments it returns bit-identical depths and poses.
 """
@@ -18,9 +19,18 @@ import torch
 
 from .. import resolve_device
 from ..core.rgbd import CameraIntrinsics, depth_to_points_normals
-from ..core.transforms import identity
+from ..core.coalesced import launch_counts as coalesced_launch_counts
+from ..core.transforms import Transform, identity
+from ..core.transforms import launch_counts as transforms_launch_counts
 from ..registration.transform_estimation import estimate_rigid_point_to_point
-from .fusion import FusionConfig, FusionMap, fusion_step, init_map_from_frame
+from .fusion import (
+    FusionConfig,
+    FusionMap,
+    fusion_step,
+    init_map_from_frame,
+    seed_localize_target,
+)
+from .scan import scan
 
 
 @dataclasses.dataclass
@@ -109,6 +119,77 @@ def run_fusion_sequence(
         seconds_per_frame=dt,
         icp_iterations=iterations,
         num_map_points=n_map,
+    )
+
+
+def run_fusion_sequence_scanned(
+    depths: Sequence[np.ndarray],
+    intrinsics: CameraIntrinsics,
+    *,
+    map_capacity: Optional[int] = None,
+    cfg: FusionConfig = FusionConfig(),
+    device="cuda",
+    stats: Optional[dict] = None,
+) -> Tuple[FusionMap, FusionMetrics]:
+    """Whole-sequence fusion, the counterpart of the JAX package's one
+    jitted ``lax.scan``: one :func:`.fusion.fusion_step` with the graph form
+    of ICP (all ``cfg.icp_iterations``, the early exit by a device flag)
+    captured in a CUDA graph and replayed once a frame
+    (:func:`.scan.scan`); eager steps on the CPU. The first localize target
+    is a render of the seeded map, then each integrate's. Returns what
+    :func:`run_fusion_sequence` returns; ``seconds_per_frame`` is that of
+    the fastest of 3 runs of the sequence by the host clock (capture and a
+    first run excluded, as the JAX driver excludes its compile; each run
+    ended by the read-back of the poses). ``stats``, if given, receives
+    ``device_seconds_per_frame`` (CUDA events, ``None`` on the CPU) and
+    ``launches_per_frame`` (every kernel counter)."""
+    dev = resolve_device(device)
+    h, w = depths[0].shape
+    if map_capacity is None:
+        map_capacity = 4 * h * w
+    pts, nrm, valid = depth_to_points_normals(
+        torch.as_tensor(np.asarray(depths[0], np.float32), device=dev), intrinsics
+    )
+    fmap0 = init_map_from_frame(map_capacity, pts, nrm, None, valid)
+    if len(depths) == 1:  # nothing to track: the seeded map is the result
+        if stats is not None:
+            stats.update(device_seconds_per_frame=None, launches_per_frame={})
+        return fmap0, FusionMetrics(
+            poses=[np.eye(4, dtype=np.float32)],
+            frames=1,
+            seconds_per_frame=0.0,
+            icp_iterations=[0],
+            num_map_points=int(fmap0.num_points()),
+        )
+    depth_stack = torch.as_tensor(np.stack([np.asarray(d, np.float32) for d in depths[1:]]),
+                                  device=dev)
+    pose0 = identity(3, device=dev)
+    _, packed0 = seed_localize_target(fmap0, pose0, intrinsics, h, w)
+
+    def step(carry, depth):
+        data, linear, translation, packed = carry
+        p, n, v = depth_to_points_normals(depth, intrinsics)
+        fmap, pose, res, _, packed = fusion_step(
+            FusionMap(data=data), p, n, None, v, Transform(linear, translation), intrinsics,
+            cached_packed_target=packed, height=h, width=w, cfg=cfg, loop="graph",
+        )
+        return (fmap.data, pose.linear, pose.translation, packed), (pose.matrix(), res.iterations)
+
+    out = scan(
+        step, (fmap0.data, pose0.linear, pose0.translation, packed0), depth_stack,
+        counters=(coalesced_launch_counts, transforms_launch_counts),
+    )
+    fmap = FusionMap(data=out.carry[0])
+    mats, iterations = out.ys
+    if stats is not None:
+        stats.update(device_seconds_per_frame=out.device_seconds_per_step,
+                     launches_per_frame=dict(out.launches_per_step))
+    return fmap, FusionMetrics(
+        poses=[np.eye(4, dtype=np.float32)] + list(mats),
+        frames=len(depths),
+        seconds_per_frame=out.seconds_per_step,
+        icp_iterations=[0] + [int(i) for i in iterations],
+        num_map_points=int(fmap.num_points()),
     )
 
 

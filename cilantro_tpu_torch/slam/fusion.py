@@ -238,11 +238,13 @@ def localize(
     cfg: FusionConfig = FusionConfig(),
     index_map: Optional[torch.Tensor] = None,
     packed_target: Optional[torch.Tensor] = None,
+    loop: str = "host",
 ) -> Tuple[Transform, ICPResult]:
     """Frame-to-model projective ICP: the refined world pose of the frame
     camera. ``packed_target`` (the previous integrate's, keyed to
     ``pose_guess``) skips the render and the pool gather; ``index_map`` (a
-    render at ``pose_guess``) skips the render only."""
+    render at ``pose_guess``) skips the render only. ``loop`` is
+    :func:`..registration.icp.icp_projective_packed`'s loop form."""
     if packed_target is not None:
         packed = packed_target
     else:
@@ -262,6 +264,7 @@ def localize(
         point_weight=cfg.icp_point_weight, plane_weight=cfg.icp_plane_weight,
         max_iterations=cfg.icp_iterations, convergence_tol=cfg.icp_convergence_tol,
         max_gn_iterations=cfg.icp_gn_iterations, max_corr_dist_sq=cfg.icp_max_corr_dist_sq,
+        loop=loop,
     )
     # res.transform maps frame points onto the model in the predicted camera
     # frame: the world pose is pose_guess ∘ delta.
@@ -520,12 +523,15 @@ def fusion_step(
     width: int,
     cfg: FusionConfig = FusionConfig(),
     do_integrate: bool = True,
+    loop: str = "host",
 ) -> Tuple[FusionMap, Transform, ICPResult, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """One fusion frame: localize (on every ``cfg.localize_stride``-th
-    pixel row and column), then integrate. Returns ``(map, pose, icp
-    result, index map, packed target)``; the last two feed the next frame's
+    pixel row and column; ``loop`` is the ICP loop form, see
+    :func:`localize`), then integrate. Returns ``(map, pose, icp result,
+    index map, packed target)``; the last two feed the next frame's
     ``cached_index_map`` / ``cached_packed_target``. A skipped integrate
-    returns no packed target: the old one is keyed to an older pose."""
+    returns no packed target: the old one is keyed to an older pose.
+    Nothing in it waits on the host but the host loop form of ICP."""
     s = cfg.localize_stride
     if s > 1:
         dev = frame_points.device
@@ -537,7 +543,7 @@ def fusion_step(
         loc = frame_points, frame_normals, frame_valid
     pose, res = localize(
         fmap, *loc, pose_guess, intrinsics, height=height, width=width, cfg=cfg,
-        index_map=cached_index_map, packed_target=cached_packed_target,
+        index_map=cached_index_map, packed_target=cached_packed_target, loop=loop,
     )
     new_imap, new_packed = cached_index_map, None
     if do_integrate:

@@ -14,8 +14,11 @@ by ``cfg.margin``. Every frame:
 * **integrate** — fuse / augment / carve as elementwise selects.
 
 The arithmetic follows the JAX module expression for expression. The JAX
-``lax.while_loop`` of localize is a Python loop here, which reads the step
-norm back to the host once per iteration.
+``lax.while_loop`` of localize has two forms here (:func:`splat_localize`):
+a Python loop that reads the step norm back once an iteration and stops
+early, used by :func:`run_splat_sequence`, and a fixed count with a device
+flag, which a CUDA graph can hold, used by
+:func:`run_splat_sequence_scanned`.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ from ..core.transforms import (
     inverse,
     reproject_rigid,
 )
+from ..core.transforms import launch_counts as transforms_launch_counts
+from .scan import scan
 from .splat import (
     flow_select_rows,
     launch_counts,
@@ -163,15 +168,48 @@ def splat_localize(
     intrinsics: CameraIntrinsics,
     *,
     cfg: SplatConfig,
+    loop: str = "host",
 ) -> Transform:
     """Model→frame projective point-to-plane ICP. Each iteration projects
     the model surfels through the current estimate, window-reads the
     frame's point/normal at the projected pixel and takes one GN step on the
     6-DoF pose; the loop stops after ``cfg.icp_iterations`` or once the step
     norm drops below ``cfg.icp_convergence_tol``. Returns the refined
-    camera-to-world pose."""
+    camera-to-world pose. ``loop`` picks the loop form (see
+    :func:`splat_localize_counted`)."""
+    return splat_localize_counted(
+        smap, frame_pts, frame_nrm, frame_valid, pose_guess, intrinsics, cfg=cfg, loop=loop
+    )[0]
+
+
+def splat_localize_counted(
+    smap: SplatMap,
+    frame_pts: torch.Tensor,
+    frame_nrm: torch.Tensor,
+    frame_valid: torch.Tensor,
+    pose_guess: Transform,
+    intrinsics: CameraIntrinsics,
+    *,
+    cfg: SplatConfig,
+    loop: str = "host",
+) -> Tuple[Transform, torch.Tensor]:
+    """:func:`splat_localize` and the GN iterations it kept (int32 on the
+    pose's device). Two forms of one iteration body:
+
+    * ``"host"`` reads the step norm back once an iteration and stops
+      early;
+    * ``"graph"`` runs all ``cfg.icp_iterations`` and never waits on the
+      host (a CUDA graph can hold it). A device flag keeps an iteration's
+      pose only while the JAX loop's ``gn_cond`` holds: fewer than
+      ``cfg.icp_iterations`` iterations and the previous step norm at or
+      above the tolerance (the step that drops below it is applied).
+
+    With the same arithmetic the two give the same pose bit for bit."""
+    if loop not in ("host", "graph"):
+        raise ValueError(f"unknown loop form {loop!r}")
     m, r = cfg.margin, cfg.radius
     l = smap.rows.shape[0]
+    dev = smap.rows.device
     # Frame channels [pt(3) | nrm(3) | valid] padded to the model grid and
     # bit-cast for the integer window-read kernel (pure selects: any bits).
     # One frame serves every layer: the batch dim is a stride-0 broadcast.
@@ -182,10 +220,9 @@ def splat_localize(
 
     mdl_pts = smap.rows[:, _CH_PT]  # (L, 3, Hm, Wm) world
     mdl_nrm = smap.rows[:, _CH_NRM]
-    eye6 = torch.eye(6, dtype=torch.float32, device=smap.rows.device)
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
 
-    cw = inverse(pose_guess)
-    for _ in range(cfg.icp_iterations):
+    def gn_iter(cw: Transform) -> Tuple[Transform, torch.Tensor]:
         _, off, mvalid = _project_model(smap.rows, cw, intrinsics, m, r)
         read = window_read_codes(fimg_i, off, radius=r).view(torch.float32)
         fok = read[:, 6] > 0.5  # NaN (unwritten -1 bits) compares False
@@ -214,11 +251,31 @@ def splat_localize(
         jw = jrow * wgt[..., None]
         jtj = torch.einsum("lyxi,lyxj->ij", jw, jrow) + 1e-8 * eye6
         jtr = torch.einsum("lyxi,lyx->i", jw, res)
-        step = -torch.linalg.solve(jtj, jtr)
-        cw = reproject_rigid(compose(gn_update_3d(step), cw))
-        if torch.linalg.vector_norm(step).item() < cfg.icp_convergence_tol:
-            break
-    return inverse(cw)
+        # solve_ex: solve checks its info code on the host.
+        step = -torch.linalg.solve_ex(jtj, jtr, check_errors=False)[0]
+        return reproject_rigid(compose(gn_update_3d(step), cw)), torch.linalg.vector_norm(step)
+
+    cw = inverse(pose_guess)
+    if loop == "host":
+        it = 0
+        while it < cfg.icp_iterations:
+            cw, step_norm = gn_iter(cw)
+            it += 1
+            if step_norm.item() < cfg.icp_convergence_tol:
+                break
+        iterations = torch.full((), it, dtype=torch.int32, device=dev)
+    else:
+        active = torch.ones((), dtype=torch.bool, device=dev)
+        iterations = torch.zeros((), dtype=torch.int32, device=dev)
+        for _ in range(cfg.icp_iterations):
+            new_cw, step_norm = gn_iter(cw)
+            cw = Transform(
+                torch.where(active, new_cw.linear, cw.linear),
+                torch.where(active, new_cw.translation, cw.translation),
+            )
+            iterations = iterations + active.to(torch.int32)
+            active = active & (step_norm >= cfg.icp_convergence_tol)
+    return inverse(cw), iterations
 
 
 def splat_integrate(
@@ -340,12 +397,22 @@ def splat_fusion_step(
     intrinsics: CameraIntrinsics,
     *,
     cfg: SplatConfig,
+    loop: str = "host",
 ) -> Tuple[SplatMap, Transform]:
+    """One frame: localize (``loop``: :func:`splat_localize_counted`), then
+    integrate."""
+    smap, pose, _ = _fusion_step_counted(smap, depth, pose_guess, intrinsics, cfg=cfg, loop=loop)
+    return smap, pose
+
+
+def _fusion_step_counted(smap, depth, pose_guess, intrinsics, *, cfg, loop):
     h, w = depth.shape
     fpt, fnm, fval = _frame_images(depth, intrinsics, h, w)
-    pose = splat_localize(smap, fpt, fnm, fval, pose_guess, intrinsics, cfg=cfg)
+    pose, iterations = splat_localize_counted(
+        smap, fpt, fnm, fval, pose_guess, intrinsics, cfg=cfg, loop=loop
+    )
     smap = splat_integrate(smap, fpt, fnm, fval, pose, intrinsics, cfg=cfg)
-    return smap, pose
+    return smap, pose, iterations
 
 
 def extract_cloud(
@@ -395,3 +462,64 @@ def run_splat_sequence(
     n_steady = max(len(depths) - 2, 1)
     sec_per_frame = (t1 - (t_first or t0)) / n_steady
     return smap, poses, sec_per_frame, launches
+
+
+def run_splat_sequence_scanned(
+    depths: Sequence[np.ndarray],
+    intrinsics: CameraIntrinsics,
+    *,
+    cfg: SplatConfig = SplatConfig(),
+    device="cuda",
+    stats: Optional[dict] = None,
+) -> Tuple[SplatMap, List[np.ndarray], float, List[Dict[str, int]]]:
+    """Whole-sequence splat fusion, the counterpart of the JAX package's one
+    jitted ``lax.scan``: one fusion step with the graph form of localize
+    (all ``cfg.icp_iterations`` GN iterations, the early exit by a device
+    flag) captured in a CUDA graph and replayed once a frame
+    (:func:`.scan.scan`); eager steps on the CPU. Returns what
+    :func:`run_splat_sequence` returns: the final map, the per-frame
+    camera-to-world poses, the seconds a frame of the fastest of 3 runs of
+    the sequence by the host clock (capture and a first run excluded, as
+    the JAX driver excludes its compile; each run ended by the read-back of
+    the poses) and, for each fused frame, the kernel launches it made.
+    ``stats``, if given, receives ``device_seconds_per_frame`` (CUDA
+    events, ``None`` on the CPU), ``iterations`` (GN iterations kept, a
+    frame) and ``launches_per_frame`` (every kernel counter)."""
+    dev = resolve_device(device)
+    h, w = depths[0].shape
+    fpt, fnm, fval = _frame_images(
+        torch.as_tensor(np.asarray(depths[0], np.float32), device=dev), intrinsics, h, w
+    )
+    smap0 = init_splat_map(fpt, fnm, fval, cfg)
+    if len(depths) == 1:  # nothing to track: the seeded map is the result
+        if stats is not None:
+            stats.update(device_seconds_per_frame=None, iterations=[], launches_per_frame={})
+        return smap0, [np.eye(4, dtype=np.float32)], 0.0, []
+    depth_stack = torch.as_tensor(np.stack([np.asarray(d, np.float32) for d in depths[1:]]),
+                                  device=dev)
+
+    def step(carry, depth):
+        rows, linear, translation = carry
+        pose = Transform(linear, translation)
+        smap, pose, iterations = _fusion_step_counted(
+            SplatMap(rows=rows, pose=pose), depth, pose, intrinsics, cfg=cfg, loop="graph"
+        )
+        return (smap.rows, pose.linear, pose.translation), (pose.matrix(), iterations)
+
+    pose0 = identity(3, device=dev)
+    out = scan(
+        step, (smap0.rows, pose0.linear, pose0.translation), depth_stack,
+        counters=(launch_counts, transforms_launch_counts),
+    )
+    rows, linear, translation = out.carry
+    mats, iterations = out.ys
+    if stats is not None:
+        stats.update(
+            device_seconds_per_frame=out.device_seconds_per_step,
+            iterations=[int(i) for i in iterations],
+            launches_per_frame=dict(out.launches_per_step),
+        )
+    per_frame = {k: out.launches_per_step[k] for k in launch_counts}
+    poses = [np.eye(4, dtype=np.float32)] + list(mats)
+    smap = SplatMap(rows=rows, pose=Transform(linear, translation))
+    return smap, poses, out.seconds_per_step, [dict(per_frame) for _ in mats]
