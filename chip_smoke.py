@@ -132,6 +132,39 @@ in order; any failure raises and exits non-zero without the final line:
 22. ``run_fusion_sequence_scanned`` on phase 10's inputs, measured as
     phase 21: ATE < 2e-4 m, poses within 1e-4 of phase 10's, and the
     gather kernel launched 2 + 6 times a replay, (2 + 6) × 15 a run.
+23. the non-rigid warp at the JAX bench's width (bench.py:130-186,
+    862-887, with a synthetic source: ``tests/test_warp_field.py``'s
+    height-field surface at 120,000 points scaled to a 0.72 m patch, the
+    bench's bend as target): the 2.5 cm control grid (1,040 nodes,
+    capacity 1,056), ``build_deformation_graph`` (k = 4 anchors, 8 arcs)
+    and ``icp_warp_field`` with the bench's settings, which takes the
+    sorted direct route; graph and solve ms (host, best of 3 after a
+    warm-up, and CUDA events), outer iterations, the warped cloud's error
+    (median and 95th percentile, and its parts along and across the
+    patch: the bound is a normal error under a quarter of the normal
+    displacement, as the bend's y term slides points along the patch
+    where nearest-point correspondences cannot see it), launches, a stage
+    split (nn search, assembly, Cholesky, increment) that must reproduce
+    the solve bit for bit, a profiler window, one direct GN step under
+    ``torch.cuda.set_sync_debug_mode("error")``, two solves with the same
+    bits, and each kernel the graph build and the solve launched bit for
+    bit against its plain version on the inputs of its last call, timed
+    beside its bound;
+24. ``icp_warp_field_batched`` with the bench's 8 targets on that graph:
+    ms a solve amortised, outer iterations, each stream's error (the same
+    bound) and its warped points within 1e-4 m (median) and 1e-3 m (max)
+    of a single direct solve of the stream with the batch's outer
+    iterations; one batched GN step with no host sync; a profiler window;
+25. the other routes at 20,000 of the points and the same grid, card
+    against the port's CPU run within the same bounds and with the same
+    outer iterations, CG iteration counts reported: ``solver="cg"``
+    (block-Jacobi), ``build_dense_graph`` with CG (one outer iteration:
+    the dense system is ill-conditioned, see :func:`warp_other_routes`)
+    and ``icp_warp_field_projective`` on a 160×120 depth frame of the
+    patch (the gather kernel once an outer iteration).
+
+Before phase 23 one empty launch (``torch.cuda._sleep(0)``) is timed as in
+phase 2, beside the gather's ICP-stream time and bound (informational).
 
 Each kernel's launch count in the kernels line comes from the path that
 runs it (counts set to 0 just before that path and read just after):
@@ -140,7 +173,8 @@ splat fusion for the splat kernels, phase 6 for the compact kernel, phase
 phase 14 for the compact kNN kernel, phase 16 for the full one, phase 20
 for ``scale2``, splat fusion for the rotation kernel (which replaces no
 Pallas kernel: ``jnp.linalg.svd`` inside XLA). Phases 21-22 count a
-replay's launches at capture, where the wrappers run.
+replay's launches at capture, where the wrappers run. The ``warp_paths``
+line before the kernels line gives each kernel's launches on phases 23-25.
 
 Every line of standard output before the last two is one JSON object. The
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -921,6 +955,8 @@ def icp_card_vs_cpu(nn, icp_mod, k_small):
 
 
 REPLACES = {
+    "coalesced_gather": "cilantro_tpu/core/coalesced.py:137",
+    "project_to_rotation": "cilantro_tpu/core/transforms.py:147",
     "nn1_fused": "cilantro_tpu/neighbors/pallas_nn.py:151",
     "nn1_masked": "cilantro_tpu/neighbors/pallas_nn.py:247",
     "nn1_compact": "cilantro_tpu/neighbors/pallas_nn.py:363",
@@ -1799,6 +1835,586 @@ def scanned_pool_path(depths, gt, k, loop_poses, loop_busy_ms, card):
     )
 
 
+# ---------------------------------------------------------------------------
+# The non-rigid warp (phases 23-25).
+# ---------------------------------------------------------------------------
+
+# The JAX bench's warp settings (bench.py:130-133, _WARP_KW) and its
+# max_cg_iterations (bench.py:174-176).
+WARP_KW = dict(max_corr_dist_sq=0.0025, point_weight=1.0, plane_weight=0.0, stiffness=50.0,
+               max_iterations=10)
+WARP_MAX_CG = 200
+WARP_POINTS, WARP_SCALE, WARP_GRID, WARP_STREAMS = 120_000, 0.36, 0.025, 8
+WARP_MAX_NODES = 8192 // 6  # nodes × 6 parameters ≤ 8192: solver="auto" takes the direct route
+WARP_EVERY = 6  # phase 25: every 6th point, 20,000 of the 120,000
+
+# Each kernel wrapper by the module names that call it: (kernel, module,
+# attribute). The warp modules and the projective search import two of them
+# by name.
+KERNEL_WRAPPERS = (
+    ("knn_full", "cilantro_tpu_torch.neighbors.fused_knn", "knn_full_rows"),
+    ("knn_compact", "cilantro_tpu_torch.neighbors.fused_knn", "knn_compact_rows"),
+    ("nn1_fused", "cilantro_tpu_torch.neighbors.fused_nn", "fused_rows"),
+    ("nn1_masked", "cilantro_tpu_torch.neighbors.fused_nn", "masked_rows"),
+    ("nn1_compact", "cilantro_tpu_torch.neighbors.fused_nn", "compact_rows"),
+    ("coalesced_gather", "cilantro_tpu_torch.core.coalesced", "coalesced_gather"),
+    ("coalesced_gather", "cilantro_tpu_torch.correspondence.projective", "coalesced_gather"),
+    ("project_to_rotation", "cilantro_tpu_torch.core.transforms", "project_to_rotation"),
+    ("project_to_rotation", "cilantro_tpu_torch.registration.warp_field", "project_to_rotation"),
+    ("project_to_rotation", "cilantro_tpu_torch.registration.warp_field_batched", "project_to_rotation"),
+)
+
+
+def reset_all_counts():
+    from cilantro_tpu_torch.core import coalesced, transforms
+    from cilantro_tpu_torch.neighbors import fused_knn, fused_nn
+
+    for mod in (coalesced, transforms, fused_knn, fused_nn):
+        mod.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    from cilantro_tpu_torch.core import coalesced, transforms
+    from cilantro_tpu_torch.neighbors import fused_knn, fused_nn
+
+    out = {}
+    for mod in (fused_nn, coalesced, fused_knn, transforms):
+        out.update(mod.launch_counts)
+    return out
+
+
+@contextlib.contextmanager
+def last_kernel_calls(kept: dict):
+    """A context in which every kernel wrapper keeps the arguments of its
+    last call in ``kept[kernel]``."""
+    import importlib
+    from unittest import mock
+
+    with contextlib.ExitStack() as stack:
+        for name, module, attr in KERNEL_WRAPPERS:
+            mod = importlib.import_module(module)
+
+            def recording(*args, _real=getattr(mod, attr), _name=name, **kwargs):
+                kept[_name] = (args, kwargs)
+                return _real(*args, **kwargs)
+
+            stack.enter_context(mock.patch.object(mod, attr, recording))
+        yield kept
+
+
+def warp_inputs():
+    """The full-width warp configuration's clouds: the source is
+    ``tests/test_warp_field.py``'s height-field ``surface`` at 120,000
+    points from ``default_rng(0)``, scaled by 0.36 (a 0.72 m patch; it
+    stands in for the bench's frame_1.ply, which the repo does not carry);
+    the target is the bench's bend (bench.py:160-162) and the B = 8 targets
+    bench.py:164-169's."""
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(-1, 1, (WARP_POINTS, 2)).astype(np.float32)
+    z = (0.2 * np.sin(1.5 * xy[:, 0]) * np.cos(1.5 * xy[:, 1])).astype(np.float32)
+    src = np.column_stack([xy, z]) * np.float32(WARP_SCALE)
+    dst = warp_bend(src)
+    dsts = []
+    for b in range(WARP_STREAMS):
+        d = src.copy()
+        d[:, 2] += 0.02 * np.sin((8 + 0.5 * b) * src[:, 0] + 0.3 * b)
+        d[:, 1] += 0.01 * np.cos((6 + 0.3 * b) * src[:, 0])
+        dsts.append(d)
+    return src, dst, np.stack(dsts)
+
+
+def warp_bend(pts):
+    out = pts.copy()
+    out[:, 2] += 0.02 * np.sin(8.0 * pts[:, 0])
+    out[:, 1] += 0.01 * np.cos(6.0 * pts[:, 0])
+    return out
+
+
+def warp_control_nodes(src_t, valid=None):
+    """The bench's control graph nodes (bench.py:863-887): a 2.5 cm
+    ``grid_downsample``, compacted to the occupied voxels, the capacity
+    rounded up to a multiple of 32 (dead padding nodes at the origin)."""
+    from cilantro_tpu_torch.core.containers import PointCloud
+    from cilantro_tpu_torch.core.grid import grid_downsample
+
+    ctrl = grid_downsample(PointCloud(points=src_t, valid=valid), WARP_GRID)
+    occ = ctrl.points[ctrl.valid]
+    cap = -(-occ.shape[0] // 32) * 32
+    nodes = torch.zeros((cap, 3), device=src_t.device)
+    nodes[: occ.shape[0]] = occ
+    return nodes, torch.arange(cap, device=src_t.device) < occ.shape[0]
+
+
+def warp_errors(warped, dst, src=None) -> dict:
+    """Median and 95th percentile of the warped points' distance to their
+    targets; with ``src`` (a :func:`warp_inputs` cloud) also the error's
+    part along the patch's normal at each source point, which nearest-point
+    correspondences observe, and the part along the patch, which they do
+    not (the bench's y term slides points along the near-flat patch)."""
+    err = np.asarray(warped) - dst
+    dist = np.linalg.norm(err, axis=-1)
+    out = {"median_m": float(np.median(dist)), "p95_m": float(np.percentile(dist, 95))}
+    if src is not None:
+        nrm = warp_normals(src)
+        along = np.abs(np.sum(err * nrm, axis=-1))
+        out.update(normal_median_m=float(np.median(along)), normal_p95_m=float(np.percentile(along, 95)),
+                   tangential_median_m=float(np.median(np.sqrt(np.maximum(dist**2 - along**2, 0.0)))))
+    return out
+
+
+def warp_normals(src):
+    """Unit normals of the :func:`warp_inputs` height field at ``src``."""
+    u, v = 1.5 * src[:, 0] / WARP_SCALE, 1.5 * src[:, 1] / WARP_SCALE
+    zx, zy = 0.3 * np.cos(u) * np.cos(v), -0.3 * np.sin(u) * np.sin(v)
+    n = np.stack([-zx, -zy, np.ones_like(zx)], axis=-1)
+    return n / np.linalg.norm(n, axis=-1, keepdims=True)
+
+
+def normal_displacement(src, dst) -> float:
+    """Median of the targets' displacement along the patch's normal."""
+    return float(np.median(np.abs(np.sum((dst - src) * warp_normals(src), axis=-1))))
+
+
+def best_host_ms(fn, reps=3) -> float:
+    """Best host-clock ms of ``reps`` runs after a warm-up, each ended by a
+    synchronise."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times)
+
+
+def _real_rows(qp, kp):
+    """Query rows that are points (the augmented "1" column) and key rows
+    that are live points (a "1" column and a finite norm), 3-D rows."""
+    return int((qp[:, 4] == 1).sum()), int(((kp[:, 3] == 1) & (kp[:, 4] < 1e37)).sum())
+
+
+def warp_kernel_checks(kept: dict, launches: dict, path: str) -> dict:
+    """Each kernel that ``path`` launched, bit for bit against its plain
+    version on the inputs of its last call on it, timed as in phase 2
+    (plain versions by the host clock, median of 3: some read back)
+    beside its bound: the nn1 count of operations a visited pair (the
+    whole query × key product for the full kernels, the live tile pairs
+    for the listed ones), bytes for the gather and the rotation."""
+    from cilantro_tpu_torch.core import coalesced as cg
+    from cilantro_tpu_torch.core import transforms as tfm
+    from cilantro_tpu_torch.neighbors import fused_knn as fk
+    from cilantro_tpu_torch.neighbors import fused_nn as nn
+
+    out = {}
+    for name, (args, kwargs) in kept.items():
+        if not launches.get(name):
+            continue
+        library = None
+        extra = {}
+        if name == "knn_full":
+            qp, kp = args
+            k, diag = kwargs["k"], kwargs.get("exclude_diag", False)
+            kernel = lambda: fk.knn_full_rows(qp, kp, k=k, exclude_diag=diag)  # noqa: E731
+            plain = lambda: fk.knn_full_rows_plain(qp, kp, k, diag)  # noqa: E731
+            nq, nk = _real_rows(qp, kp)
+            q, kk = -0.5 * qp[qp[:, 4] == 1, :3], kp[(kp[:, 3] == 1) & (kp[:, 4] < 1e37), :3]
+            library = lambda: torch.topk(torch.cdist(q, kk), min(k, nk), dim=1, largest=False)  # noqa: E731
+            pairs, nbytes = nq * nk, (qp.numel() + kp.numel()) * 4 + qp.shape[0] * k * 8
+            extra = dict(k=k, exclude_diag=diag, query_rows=nq, key_rows=nk,
+                         library_is="torch.cdist + topk over the same points (two calls, a yardstick)")
+        elif name == "knn_compact":
+            qp, kp, qt, kt, fl = args
+            k, tq, tm = kwargs["k"], kwargs["tile_q"], kwargs["tile_m"]
+            diag = kwargs.get("exclude_diag", False)
+            live = int(((fl & 2) != 0).sum())
+            kernel = lambda: fk.knn_compact_rows(qp, kp, qt, kt, fl, k=k, tile_q=tq, tile_m=tm,  # noqa: E731
+                                                 exclude_diag=diag, max_live=live)
+            plain = lambda: fk.knn_compact_rows_plain(qp, kp, qt, kt, fl, k, tq, tm, diag)  # noqa: E731
+            pairs = live * tq * tm
+            nbytes = (qp.numel() + kp.numel()) * 4 + 3 * 4 * qt.shape[0] + qp.shape[0] * k * 8
+            extra = dict(k=k, exclude_diag=diag, live_tile_pairs=live, tiles=[tq, tm],
+                         library_is="none: no PyTorch call visits only the surviving pairs")
+        elif name in ("nn1_compact", "nn1_masked", "nn1_fused"):
+            fn, plain_fn = {"nn1_compact": (nn.compact_rows, nn.compact_rows_plain),
+                            "nn1_masked": (nn.masked_rows, nn.masked_rows_plain),
+                            "nn1_fused": (nn.fused_rows, nn.fused_rows_plain)}[name]
+            qp, kp = args[:2]
+            kernel = lambda: fn(*args, **kwargs)  # noqa: E731
+            if name == "nn1_fused":
+                plain = lambda: plain_fn(qp, kp)  # noqa: E731
+                nq, nk = _real_rows(qp, kp)
+                pairs, nbytes = nq * nk, (qp.numel() + kp.numel()) * 4 + qp.shape[0] * 8
+            else:
+                tq, tm = kwargs["tile_q"], kwargs["tile_m"]
+                plain = lambda: plain_fn(*args, tq, tm)  # noqa: E731
+                if name == "nn1_compact":
+                    live = int(((args[4] & 2) != 0).sum())
+                    list_bytes = 3 * 4 * args[2].shape[0]
+                else:
+                    live = int((args[2] != 0).sum())
+                    list_bytes = args[2].numel() * 4
+                pairs = live * tq * tm
+                nbytes = (qp.numel() + kp.numel()) * 4 + qp.shape[0] * 8 + list_bytes
+                extra = dict(live_tile_pairs=live, tiles=[tq, tm])
+            extra.update(library_is="none: no PyTorch call visits only the surviving pairs")
+        elif name == "project_to_rotation":
+            (x,) = args
+            kernel = lambda: tfm.project_to_rotation(x)  # noqa: E731
+            plain = lambda: tfm.project_to_rotation_plain(x)  # noqa: E731
+            n = x.numel() // 9
+            pairs, nbytes = None, ROTATION_BYTES * n
+            extra = dict(matrices=n, library_is="none: no single PyTorch call")
+        elif name == "coalesced_gather":
+            src, idx = args
+            kernel = lambda: cg.coalesced_gather(src, idx)  # noqa: E731
+            plain = lambda: cg.coalesced_gather_plain(src, idx)  # noqa: E731
+            library = lambda: torch.index_select(src, 0, idx.clamp(0, src.shape[0] - 1))  # noqa: E731
+            n, w = idx.shape[0], src.shape[1]
+            distinct = int(torch.unique(idx.clamp(0, src.shape[0] - 1)).numel())
+            pairs, nbytes = None, n * 4 + n * w * 4 + distinct * w * 4
+            extra = dict(rows=n, width=w, distinct_rows=distinct,
+                         library_is="torch.index_select of the clamped indices (a yardstick)")
+        else:
+            raise AssertionError(f"{path}: no check for kernel {name}")
+        k_out, p_out = kernel(), plain()
+        torch.cuda.synchronize()
+        if isinstance(k_out, torch.Tensor):
+            k_out, p_out = (k_out,), (p_out,)
+        assert_same_bits(f"{name} ({path})", k_out, p_out)
+        if pairs is None:
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            by_ops = ROTATION_OPS * n / F32_OPS_PER_S * 1e3 if name == "project_to_rotation" else 0.0
+            bound_ms, bound_by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+        else:
+            bound_ms, bound_by = nn1_bound(pairs, nbytes)
+        entry = dict(
+            name=name, route="cuda", source=KERNEL_SOURCES[name], replaces=REPLACES[name],
+            launches=launches[name], max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)),
+            ms=device_ms(kernel), plain_ms=host_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None if library is None else device_ms(library), pairs=pairs, bytes=nbytes,
+        )
+        emit(phase="warp_kernel_vs_plain", path=path, tolerance="bit-exact",
+             plain_timer="host clock, median of 3", **entry, **extra)
+        out[name] = entry
+    return out
+
+
+def warp_stage_split(tw, graph, src_t, dst_t, tf_ref):
+    """Phase 23b: the solve's outer iterations rebuilt from the port's
+    stages, each ended with a synchronise and bracketed by CUDA events: nn
+    search (warp, pruned 1-NN, target gathers), assembly (linearisation,
+    rhs, normal matrix), Cholesky (``cholesky_ex`` + ``cholesky_solve``)
+    and increment (rotations, re-projection, node motion). It must give the
+    entry point's transforms bit for bit. Returns the per-stage sums and the
+    last iteration's correspondences."""
+    from cilantro_tpu_torch.correspondence.search import find_nn_correspondences
+    from cilantro_tpu_torch.neighbors.fused_nn import maybe_make_nn1_prune_plan
+
+    dev = src_t.device
+    mcd = WARP_KW["max_corr_dist_sq"]
+    sv = torch.ones(src_t.shape[0], dtype=torch.bool, device=dev)
+    plan = maybe_make_nn1_prune_plan(dst_t, mcd, src_t, query_valid=sv)
+    node_tf = tw.identity_warp(graph.num_nodes, 3, device=dev)
+    names = ("nn_search", "assembly", "cholesky", "increment")
+    dev_ms = {k: 0.0 for k in names}
+    host = {k: 0.0 for k in names}
+    iterations = 0
+    while iterations < WARP_KW["max_iterations"]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        stamps = []
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        ev[0].record()
+        warped = tw._warp_points(graph, node_tf, src_t)
+        corr = find_nn_correspondences(warped, dst_t, query_valid=sv, max_distance=mcd, prune_plan=plan)
+        dgt = dst_t[torch.where(corr.mask, corr.dst_idx, 0).long()]
+        w = corr.mask.to(torch.float32)
+        for stage in range(4):
+            if stage == 1:
+                t = tw._linearize(graph, node_tf, src_t, dgt, None, w * WARP_KW["point_weight"],
+                                  w * WARP_KW["plane_weight"], stiffness=WARP_KW["stiffness"],
+                                  huber_delta=1e-2, affine=False)
+                rhs = t.rhs()
+                h = tw._normal_matrix(t, 1e-6)
+            elif stage == 2:
+                delta = tw._direct_solve(h, rhs)
+            elif stage == 3:
+                new_tf, _ = tw._apply_increment(node_tf, delta, graph.node_valid, False)
+                upd = tw.node_motion(new_tf, node_tf, graph.node_valid)
+            ev[stage + 1].record()
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        for i, k in enumerate(names):
+            dev_ms[k] += ev[i].elapsed_time(ev[i + 1])
+            host[k] += (stamps[i + 1] - stamps[i]) * 1e3
+        node_tf = new_tf
+        iterations += 1
+        if not bool(upd >= WARP_KW.get("convergence_tol", 2.5e-3)):
+            break
+    if not (torch.equal(node_tf.linear, tf_ref.linear) and torch.equal(node_tf.translation, tf_ref.translation)):
+        raise AssertionError("the stage split did not reproduce icp_warp_field's transforms")
+    return {"device_ms": dev_ms, "host_ms": host, "iterations": iterations}, (node_tf, dgt, w)
+
+
+def warp_single_path(card):
+    """Phase 23: ``icp_warp_field`` at the full width (the bench's EDG row)
+    on the card. Returns the graph, clouds and the launches and kernel
+    entries of the path."""
+    from cilantro_tpu_torch.registration import warp_field as tw
+
+    dev = torch.device("cuda")
+    src, dst, dsts = warp_inputs()
+    src_t, dst_t = torch.as_tensor(src, device=dev), torch.as_tensor(dst, device=dev)
+    disp = float(np.median(np.linalg.norm(dst - src, axis=1)))
+    disp_n = normal_displacement(src, dst)
+
+    nodes, node_valid = warp_control_nodes(src_t)
+    live = int(node_valid.sum())
+    nodes_ms = best_host_ms(lambda: warp_control_nodes(src_t))
+
+    def build():
+        return tw.build_deformation_graph(src_t, nodes, node_valid=node_valid, k_anchors=4, k_arcs=8,
+                                          device=dev)
+
+    build()
+    reset_all_counts()
+    kept_graph = {}
+    with last_kernel_calls(kept_graph):
+        graph = build()
+    torch.cuda.synchronize()
+    graph_launches = all_counts()
+    m = graph.num_nodes
+    n = src.shape[0]
+    if not (m <= WARP_MAX_NODES and tw.use_direct_solver("auto", m, n, 4, 3, False)
+            and tw.direct_route(graph, n, 3, False) == "sorted"):
+        raise AssertionError(f"{live} nodes (capacity {m}): solver='auto' would not take the sorted direct route")
+    graph_ms = dict(host_ms=best_host_ms(build), events_ms=once_ms(build))
+
+    def solve():
+        return tw.icp_warp_field(graph, src_t, dst_t, max_cg_iterations=WARP_MAX_CG, device=dev, **WARP_KW)
+
+    solve()
+    reset_all_counts()
+    kept_solve = {}
+    with last_kernel_calls(kept_solve):
+        tf, it, conv = solve()
+    torch.cuda.synchronize()
+    solve_launches = all_counts()
+    iterations = int(it)
+    nn_passes = solve_launches["nn1_compact"] + solve_launches["nn1_masked"]
+    if solve_launches["project_to_rotation"] != iterations or nn_passes != iterations:
+        raise AssertionError(f"warp solve launched {solve_launches} in {iterations} outer iterations")
+    tf2, it2, _ = solve()
+    same_bits = int(it2) == iterations and torch.equal(tf.linear, tf2.linear) and torch.equal(
+        tf.translation, tf2.translation)
+    if not same_bits:
+        raise AssertionError("two direct solves on the card gave different bits")
+    solve_ms = dict(host_ms=best_host_ms(solve), events_ms=once_ms(solve))
+    warped = tw.warp_points(graph, tf, src_t, device=dev).cpu().numpy()
+    err = warp_errors(warped, dst, src)
+    if not (np.isfinite(warped).all() and err["normal_median_m"] < 0.25 * disp_n):
+        raise AssertionError(f"warp median normal error {err['normal_median_m']} m against a {disp_n} m "
+                             "normal displacement")
+    split, (tf_split, dgt, w) = warp_stage_split(tw, graph, src_t, dst_t, tf)
+    # One direct GN step at the solved field, as the solve's last one ran.
+    no_host_sync("warp direct GN step, 120,000 points", lambda: tw.estimate_warp_field(
+        graph, src_t, dgt, None, w, init=tf_split, point_weight=WARP_KW["point_weight"],
+        plane_weight=WARP_KW["plane_weight"], stiffness=WARP_KW["stiffness"], max_gn_iterations=1,
+        gn_tol=0.0, solver="direct", device=dev))
+    try:
+        prof = profile_once(solve, solve_ms["host_ms"])
+    except Exception as e:  # informational: report and go on
+        prof = {"device_busy": "not measured", "error": f"{type(e).__name__}: {e}"}
+    emit(phase="warp_single_path", entry="icp_warp_field", points=n, nodes=live, node_capacity=m,
+         pair_segments=graph.pair_uniq_count, solver="direct (sorted narrow-input assembly)",
+         outer_iterations=iterations, converged=bool(conv), median_displacement_m=disp,
+         median_normal_displacement_m=disp_n, error=err,
+         error_bound="normal_median_m < 0.25 x median_normal_displacement_m", error_bound_m=0.25 * disp_n, control_nodes_host_ms=nodes_ms, graph_build=graph_ms,
+         solve=solve_ms, graph_launches={k: v for k, v in graph_launches.items() if v},
+         solve_launches={k: v for k, v in solve_launches.items() if v}, two_runs_same_bits=same_bits,
+         stage_split=split, profile=prof, card=card)
+    entries = warp_kernel_checks(kept_graph, graph_launches, "phase 23, graph build")
+    entries.update(warp_kernel_checks(kept_solve, solve_launches, "phase 23, solve (last outer iteration)"))
+    return (graph, src, dst, dsts, src_t, nodes, node_valid, tf), graph_launches, solve_launches, entries
+
+
+def warp_batched_path(tw, graph, src, dsts, src_t, card):
+    """Phase 24: ``icp_warp_field_batched`` with the 8 targets on phase 23's
+    graph: ms a solve amortised, outer iterations, each stream's error
+    (phase 23's bound) and its warped points against a single direct solve
+    of that stream with the batch's outer iterations (1e-4 m median, 1e-3 m
+    max)."""
+    from cilantro_tpu_torch.registration import warp_field_batched as twb
+
+    dev = src_t.device
+    dstb = torch.as_tensor(dsts, device=dev)
+
+    def solve():
+        return twb.icp_warp_field_batched(graph, src_t, dstb, device=dev, **WARP_KW)
+
+    solve()
+    reset_all_counts()
+    tfb, it, conv = solve()
+    torch.cuda.synchronize()
+    launches = all_counts()
+    host = best_host_ms(solve)
+    w = torch.ones((src.shape[0], len(dsts)), device=dev)
+    no_host_sync("warp batched direct GN step, B = 8", lambda: twb.estimate_warp_field_batched(
+        graph, src_t, dstb.permute(1, 0, 2), None, w, init=tfb, point_weight=WARP_KW["point_weight"],
+        plane_weight=WARP_KW["plane_weight"], stiffness=WARP_KW["stiffness"], device=dev))
+    wb = twb.warp_points_batched(graph, tfb, src_t, device=dev).cpu().numpy()
+    streams = []
+    for b in range(len(dsts)):
+        disp = normal_displacement(src, dsts[b])
+        err = warp_errors(wb[:, b], dsts[b], src)
+        # The streams iterate in lockstep: the single solve runs as many
+        # outer iterations as the batch did.
+        tf_s, _, _ = tw.icp_warp_field(graph, src_t, dstb[b], solver="direct", max_cg_iterations=WARP_MAX_CG,
+                                       device=dev, **dict(WARP_KW, max_iterations=int(it), convergence_tol=0.0))
+        diff = np.linalg.norm(tw.warp_points(graph, tf_s, src_t, device=dev).cpu().numpy() - wb[:, b], axis=1)
+        streams.append(dict(error=err, median_normal_displacement_m=disp,
+                            vs_single_median_m=float(np.median(diff)), vs_single_max_m=float(diff.max())))
+        if not (np.isfinite(wb[:, b]).all() and err["normal_median_m"] < 0.25 * disp):
+            raise AssertionError(f"batched stream {b}: median normal error {err['normal_median_m']} m, "
+                                 f"normal displacement {disp} m")
+        if not (np.median(diff) < 1e-4 and diff.max() < 1e-3):
+            raise AssertionError(f"batched stream {b} is {np.median(diff)} / {diff.max()} m from its single solve")
+    try:
+        prof = profile_once(solve, host)
+    except Exception as e:  # informational: report and go on
+        prof = {"device_busy": "not measured", "error": f"{type(e).__name__}: {e}"}
+    emit(phase="warp_batched_path", entry="icp_warp_field_batched", streams=len(dsts),
+         outer_iterations=int(it), converged=conv.cpu().tolist(), host_ms=host,
+         ms_per_solve_amortised=host / len(dsts), events_ms=once_ms(solve), per_stream=streams,
+         launches={k: v for k, v in launches.items() if v}, profile=prof, card=card)
+    return launches
+
+
+@contextlib.contextmanager
+def cg_counts_recorded(tw, counts: list):
+    """``icp_warp_field``'s GN steps keep their CG iteration counts."""
+    from unittest import mock
+
+    real = tw.estimate_warp_field
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        counts.append(out[2])
+        return out
+
+    with mock.patch.object(tw, "estimate_warp_field", recording):
+        yield counts
+
+
+def warp_depth_frame():
+    """The patch seen from 0.6 m above (160×120, the phase 9 intrinsics):
+    the height field of :func:`warp_inputs` at each pixel's footprint."""
+    from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
+
+    k = CameraIntrinsics.make(131.25, 131.25, 79.5, 59.5)
+    h, w, z0 = 120, 160, 0.6
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    x, y = (u - k.cx) / k.fx * z0, (v - k.cy) / k.fy * z0
+    depth = z0 - WARP_SCALE * 0.2 * np.sin(1.5 * x / WARP_SCALE) * np.cos(1.5 * y / WARP_SCALE)
+    return depth.astype(np.float32), k, h, w
+
+
+def warp_other_routes(tw, src, dst, nodes, node_valid, card):
+    """Phase 25: the CG solver (block-Jacobi), the dense graph with CG and
+    the projective variant on the card and on the CPU (the plain versions),
+    at 20,000 points (every 6th of phase 23's) and its grid; the depth
+    frame of :func:`warp_depth_frame` for the projective one; the dense
+    field one outer iteration. Each graph is built
+    on the card and copied to the CPU. Card and CPU warped points within
+    1e-4 m (median) and 1e-3 m (max), the same outer iterations."""
+    from cilantro_tpu_torch.core.rgbd import depth_to_points_normals
+
+    dev = torch.device("cuda")
+    src20, dst20 = src[::WARP_EVERY].copy(), dst[::WARP_EVERY].copy()
+    src20_t = torch.as_tensor(src20, device=dev)
+    depth, k, h, w = warp_depth_frame()
+    psrc_t, _, pok_t = depth_to_points_normals(torch.as_tensor(depth, device=dev), k)
+    psrc, pok = psrc_t.cpu().numpy(), pok_t.cpu().numpy()
+    pdst = warp_bend(psrc)
+    pnodes, pvalid = warp_control_nodes(psrc_t, pok_t)
+    kw = dict(WARP_KW, max_cg_iterations=WARP_MAX_CG)
+    # The dense field (20,000 nodes) is ill-conditioned: CG stops at its cap
+    # of 200 in every outer iteration, and from the second on the two runs'
+    # correspondences part at float32 noise that the unconverged CG
+    # amplifies (the CPU at 8 threads against 1: 0.3 mm median, 4 mm max
+    # after 10 outer iterations; 8e-8 m and 6.5e-6 m after one). So card and
+    # CPU are held on one outer iteration of 200 CG iterations.
+    dense_kw = dict(kw, max_iterations=1)
+    cases = (
+        ("cg", lambda d: tw.build_deformation_graph(src20_t, nodes, node_valid=node_valid, k_anchors=4,
+                                                    k_arcs=8, device=d),
+         lambda g, d: tw.icp_warp_field(g, src20, dst20, solver="cg", device=d, **kw), src20, dst20),
+        ("dense_cg", lambda d: tw.build_dense_graph(src20_t, k_arcs=8, device=d),
+         lambda g, d: tw.icp_warp_field(g, src20, dst20, solver="cg", device=d, **dense_kw), src20, dst20),
+        ("projective", lambda d: tw.build_deformation_graph(psrc_t, pnodes, node_valid=pvalid, k_anchors=4,
+                                                            k_arcs=8, device=d),
+         lambda g, d: tw.icp_warp_field_projective(g, psrc, pdst, k, height=h, width=w, src_valid=pok,
+                                                   dst_valid=pok, device=d, **kw), psrc, pdst),
+    )
+    launches = {}
+    for label, build, run, s, t in cases:
+        kept = {}
+        reset_all_counts()
+        with last_kernel_calls(kept):
+            graph = build(dev)
+        torch.cuda.synchronize()
+        graph_launches = all_counts()
+        reset_all_counts()
+        cg_card, cg_cpu = [], []
+        t0 = time.perf_counter()
+        with cg_counts_recorded(tw, cg_card), last_kernel_calls(kept):
+            tf_card, it_card, _ = run(graph, dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        solve_launches = all_counts()
+        cpu_graph = graph.to("cpu")
+        t0 = time.perf_counter()
+        with cg_counts_recorded(tw, cg_cpu):
+            tf_cpu, it_cpu, _ = run(cpu_graph, "cpu")
+        cpu_s = time.perf_counter() - t0
+        got = tw.warp_points(graph, tf_card, s, device=dev).cpu().numpy()
+        want = tw.warp_points(cpu_graph, tf_cpu, s, device="cpu").numpy()
+        diff = np.linalg.norm(got - want, axis=1)
+        ok = pok if label == "projective" else np.ones(len(s), bool)
+        rec = dict(points=int(len(s)), nodes=int(graph.node_valid.sum()), node_capacity=graph.num_nodes,
+                   solver="cg" if label != "projective" else
+                   ("direct" if tw.use_direct_solver("auto", graph.num_nodes, len(s), 4, 3, False) else "cg"),
+                   outer_iterations_card=int(it_card), outer_iterations_cpu=int(it_cpu),
+                   cg_iterations_card=[int(c) for c in cg_card], cg_iterations_cpu=[int(c) for c in cg_cpu],
+                   card_vs_cpu_median_m=float(np.median(diff)), card_vs_cpu_max_m=float(diff.max()),
+                   error=warp_errors(got[ok], t[ok]), card_s=card_s, cpu_s=cpu_s,
+                   graph_launches={k_: v for k_, v in graph_launches.items() if v},
+                   solve_launches={k_: v for k_, v in solve_launches.items() if v})
+        emit(phase="warp_other_route", route=label, tolerance="1e-4 m median, 1e-3 m max", card=card, **rec)
+        if int(it_card) != int(it_cpu) or not (np.median(diff) < 1e-4 and diff.max() < 1e-3):
+            raise AssertionError(f"warp {label}: card and CPU disagree: {rec}")
+        if label == "projective" and solve_launches["coalesced_gather"] != int(it_card):
+            raise AssertionError(f"projective warp launched {solve_launches['coalesced_gather']} gathers "
+                                 f"in {int(it_card)} outer iterations")
+        launches[label] = {"graph": graph_launches, "solve": solve_launches}
+        both = {k_: graph_launches[k_] + solve_launches[k_] for k_ in graph_launches}
+        warp_kernel_checks(kept, both, f"phase 25, {label}")
+    return launches
+
+
+KERNEL_SOURCES = {
+    "knn_full": "cilantro_tpu_torch/csrc/knn_kernels.cu",
+    "knn_compact": "cilantro_tpu_torch/csrc/knn_kernels.cu",
+    "nn1_fused": "cilantro_tpu_torch/csrc/nn1_kernels.cu",
+    "nn1_masked": "cilantro_tpu_torch/csrc/nn1_kernels.cu",
+    "nn1_compact": "cilantro_tpu_torch/csrc/nn1_kernels.cu",
+    "coalesced_gather": "cilantro_tpu_torch/csrc/gather_kernels.cu",
+    "project_to_rotation": "cilantro_tpu_torch/csrc/rotation_kernels.cu",
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -1968,6 +2584,32 @@ def main() -> int:
     # 21-22. The scanned drivers: one step captured in a CUDA graph, replayed.
     scanned_splat_path(sf, depths, gt, k, cfg, poses, splat_busy_ms, card)
     scanned_pool_path(depths, gt, k, pool_met.poses, pool_busy_ms, card)
+
+    # What any launch costs by phase 2's timer: an empty kernel (a spin of
+    # 0 cycles), beside the gather's ICP stream, whose byte bound lies below it.
+    emit(phase="empty_launch", kernel="torch.cuda._sleep(0)", ms=device_ms(lambda: torch.cuda._sleep(0)),
+         icp_stream_gather_ms=gathers["icp_projective"]["ms"],
+         icp_stream_gather_bound_ms=gathers["icp_projective"]["bound_ms"], card=card)
+
+    # 23-25. The non-rigid warp: single and batched solves at the full
+    # width, then the other routes card against CPU.
+    from cilantro_tpu_torch.registration import warp_field as tw
+
+    warp, graph_launches, solve_launches, warp_entries = warp_single_path(card)
+    graph, src, dst, dsts, src_t, nodes, node_valid, _ = warp
+    batched_launches = warp_batched_path(tw, graph, src, dsts, src_t, card)
+    del graph, warp
+    other = warp_other_routes(tw, src, dst, nodes, node_valid, card)
+    warp_paths = [
+        {"phase": 23, "path": "build_deformation_graph, 120,000 points", "launches": graph_launches},
+        {"phase": 23, "path": "icp_warp_field, direct", "launches": solve_launches,
+         "held_bit_exact": sorted(warp_entries)},
+        {"phase": 24, "path": "icp_warp_field_batched, B = 8", "launches": batched_launches},
+    ]
+    for label, rec in other.items():
+        warp_paths += [{"phase": 25, "path": f"{label}: graph", "launches": rec["graph"]},
+                       {"phase": 25, "path": f"{label}: solve", "launches": rec["solve"]}]
+    print(json.dumps({"warp_paths": warp_paths}), flush=True)
 
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]

@@ -13,7 +13,7 @@ The wrapper runs the plain version only for CPU tensors; for a CUDA tensor
 it launches the kernel or raises.
 
 Ported so far (splat fusion, rigid ICP, pool fusion, neighbour engines
-and normals, the scanned drivers):
+and normals, the scanned drivers, the non-rigid warp):
 
 core            ``Transform`` and its ops (the closest rotation through a
                 kernel, ``csrc/rotation_kernels.cu``), ``CameraIntrinsics``, depth →
@@ -27,7 +27,9 @@ neighbors       exact 1-NN and the nn1 kernels (``neighbors/fused_nn.py``),
                 the ``knn_search`` / ``radius_search`` API
 correspondence  nearest-neighbour and projective correspondences
 registration    the 3-D estimators, ``icp``, ``icp_multires``,
-                ``icp_projective``
+                ``icp_projective``; the non-rigid warp fields on an
+                embedded deformation graph or per point, single and
+                B-stream (``warp_field.py``, ``warp_field_batched.py``)
 slam            the splat kernels (``slam/splat.py``), splat fusion
                 (``slam/splat_fusion.py``), pool fusion
                 (``slam/fusion.py``), ``run_fusion_sequence``,
@@ -35,7 +37,8 @@ slam            the splat kernels (``slam/splat.py``), splat fusion
                 (``slam/driver.py``), and both pipelines' scanned
                 drivers, one step captured in a CUDA graph and replayed
                 (``slam/scan.py``)
-interop         build port state from the JAX package's leaves (numpy)
+interop         build port state (clouds, maps, deformation graphs) from
+                the JAX package's leaves (numpy)
 tools           the wide-row probe and its ``scale2`` kernel
 """
 

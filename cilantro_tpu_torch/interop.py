@@ -16,6 +16,7 @@ from .core.containers import PointCloud
 from .core.rgbd import CameraIntrinsics
 from .core.transforms import Transform
 from .neighbors.api import Neighborhoods
+from .registration.warp_field import DeformationGraph, _with_segment_lengths
 from .slam.fusion import FusionMap
 from .slam.splat_fusion import SplatMap
 
@@ -92,3 +93,20 @@ def icp_result_to_numpy(result) -> dict:
         "converged": bool(result.converged),
         "num_correspondences": int(result.num_correspondences),
     }
+
+
+def deformation_graph_from_numpy(device="cuda", **leaves) -> DeformationGraph:
+    """A port ``DeformationGraph`` from the leaves of a JAX one, caches
+    included: each field by name (``np.asarray(g.anchors)``, ...; None where
+    JAX's is None) and ``caches_sorted`` as a bool. The port's segment
+    lengths are counted from the caches, so a JAX-built graph can be fed to
+    the port's solvers."""
+    dev = resolve_device(device)
+    caches_sorted = bool(leaves.pop("caches_sorted", True))
+    bools = ("node_valid", "arc_mask", "ps_swap")
+    floats = ("node_positions", "anchor_weights", "ps_w2")
+    fields = {
+        name: _leaf(a, bool if name in bools else np.float32 if name in floats else np.int32, dev)
+        for name, a in leaves.items()
+    }
+    return _with_segment_lengths(DeformationGraph(caches_sorted=caches_sorted, **fields))

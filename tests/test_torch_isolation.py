@@ -103,3 +103,36 @@ def test_neighbour_entry_points_raise_without_cuda(monkeypatch):
     # Normals run where the cloud lies: a CPU cloud needs no card.
     cloud = containers.from_numpy(np.random.default_rng(0).random((64, 3), np.float32), device="cpu")
     assert cloud.with_normals_knn(8).normals.device.type == "cpu"
+
+
+def test_warp_entry_points_raise_without_cuda(monkeypatch):
+    """The warp entry points default to the card, as the rest of the port:
+    without CUDA they raise, and run on the CPU only when asked."""
+    from cilantro_tpu_torch import interop
+    from cilantro_tpu_torch.registration import warp_field as tw
+    from cilantro_tpu_torch.registration import warp_field_batched as twb
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    src = rng.uniform(-0.5, 0.5, (200, 3)).astype(np.float32)
+    nodes = src[::20]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tw.build_deformation_graph(src, nodes)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tw.build_dense_graph(src)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tw.identity_warp(len(nodes))
+    graph = tw.build_deformation_graph(src, nodes, device="cpu")
+    assert graph.anchors.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tw.icp_warp_field(graph, src, src)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        twb.icp_warp_field_batched(graph, src, src[None])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.deformation_graph_from_numpy(
+            **{name: getattr(graph, name).numpy() for name in (
+                "node_positions", "node_valid", "anchors", "anchor_weights", "arc_i", "arc_j",
+                "arc_mask", "anchor_order", "anchor_sorted_ids", "arc_j_order", "arc_j_sorted")}
+        )
+    tf, it, _ = tw.icp_warp_field(graph, src, src, max_iterations=2, device="cpu")
+    assert tf.linear.device.type == "cpu" and it.device.type == "cpu"
