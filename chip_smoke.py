@@ -163,6 +163,41 @@ in order; any failure raises and exits non-zero without the final line:
     and ``icp_warp_field_projective`` on a 160×120 depth frame of the
     patch (the gather kernel once an outer iteration).
 
+26. ``run_slam`` at the JAX bench's SLAM row (bench.py:1035-1083): 48
+    frames of ``synthetic_panorama_sequence(seed=3, depth_noise=0.008)``
+    at 320×240, ``map_capacity = 8·H·W``, ``FusionConfig(localize_stride=1,
+    icp_iterations=8)``, ``SlamConfig(keyframe_every=5,
+    loop_min_separation=3, loop_edge_weight=5.0)``, the scanned front end,
+    once with ``run_ba=False`` and once with ``run_ba=True``: keyframes,
+    loop closures, max and endpoint orientation error and ATE before and
+    after the backend, map points, host ms of each stage (front end,
+    keyframes, loop closures, pose graph, BA, rebuild; a second run, each
+    stage ended by a synchronise), the launches of each stage and a profile
+    window (of the run with BA, which runs every stage). It fails unless a
+    loop closes, the front end drifts by more than 1°, the max and
+    endpoint orientation errors fall below 0.65 of the front end's, the map
+    holds more than H·W points and more than 95% of them lie within 0.7 m
+    of the 2.5 m wall, and the ATE after the backend is at most 1.2 times
+    the front end's (``tests/test_slam_loop.py``'s bounds). At this shape
+    the JAX package's own BA run breaks that ATE bound (3.6457 → 4.5527 cm,
+    a ratio of 1.2488, ``tests/torch_slam_witness.py`` on the CPU), so the
+    run with BA is held instead to within 0.03 of that ratio, the run
+    without BA (JAX: 1.0660) to the bound; each kernel the path launched
+    is held bit for bit against its plain version on the inputs of its
+    last call and timed beside its bound;
+27. ``bundle_adjust`` at mapping scale (``tests/test_slam_backend.py:133``:
+    K = 64, L = 100,000, O = 300,000, seed 0, 3 outer iterations, 30 CG
+    iterations): ``torch.linalg.inv_ex`` on 100,000 3×3 and 64 6×6 SPD
+    matrices (status, residual, no host sync), the residual before and
+    after (it must fall), host and CUDA-event ms, outer and CG iteration
+    counts, both PCG forms (all iterations masked with no host read, and
+    ``cilantro_tpu_torch/tools/pcg_forms.py``'s host read an iteration;
+    the same bits, at max_cg 30 and 60), two
+    solves with the same bits, one step under
+    ``torch.cuda.set_sync_debug_mode("error")``, a profile window; then
+    ``optimize_pose_graph`` and ``bundle_adjust`` card against CPU on
+    small problems within 1e-4.
+
 Before phase 23 one empty launch (``torch.cuda._sleep(0)``) is timed as in
 phase 2, beside the gather's ICP-stream time and bound (informational).
 
@@ -174,7 +209,10 @@ phase 14 for the compact kNN kernel, phase 16 for the full one, phase 20
 for ``scale2``, splat fusion for the rotation kernel (which replaces no
 Pallas kernel: ``jnp.linalg.svd`` inside XLA). Phases 21-22 count a
 replay's launches at capture, where the wrappers run. The ``warp_paths``
-line before the kernels line gives each kernel's launches on phases 23-25.
+line before the kernels line gives each kernel's launches on phases 23-25,
+the ``slam_paths`` line on phases 26-27 (by stage; the scanned front end's
+wrappers run at its warm-up step and its capture, and the line gives its
+launches a replay beside them).
 
 Every line of standard output before the last two is one JSON object. The
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -1849,8 +1887,8 @@ WARP_MAX_NODES = 8192 // 6  # nodes × 6 parameters ≤ 8192: solver="auto" take
 WARP_EVERY = 6  # phase 25: every 6th point, 20,000 of the 120,000
 
 # Each kernel wrapper by the module names that call it: (kernel, module,
-# attribute). The warp modules and the projective search import two of them
-# by name.
+# attribute). The warp, fusion and SLAM backend modules and the projective
+# search import two of them by name.
 KERNEL_WRAPPERS = (
     ("knn_full", "cilantro_tpu_torch.neighbors.fused_knn", "knn_full_rows"),
     ("knn_compact", "cilantro_tpu_torch.neighbors.fused_knn", "knn_compact_rows"),
@@ -1859,9 +1897,12 @@ KERNEL_WRAPPERS = (
     ("nn1_compact", "cilantro_tpu_torch.neighbors.fused_nn", "compact_rows"),
     ("coalesced_gather", "cilantro_tpu_torch.core.coalesced", "coalesced_gather"),
     ("coalesced_gather", "cilantro_tpu_torch.correspondence.projective", "coalesced_gather"),
+    ("coalesced_gather", "cilantro_tpu_torch.slam.fusion", "coalesced_gather"),
     ("project_to_rotation", "cilantro_tpu_torch.core.transforms", "project_to_rotation"),
     ("project_to_rotation", "cilantro_tpu_torch.registration.warp_field", "project_to_rotation"),
     ("project_to_rotation", "cilantro_tpu_torch.registration.warp_field_batched", "project_to_rotation"),
+    ("project_to_rotation", "cilantro_tpu_torch.slam.pose_graph", "project_to_rotation"),
+    ("project_to_rotation", "cilantro_tpu_torch.slam.bundle_adjustment", "project_to_rotation"),
 )
 
 
@@ -1995,7 +2036,7 @@ def _real_rows(qp, kp):
     return int((qp[:, 4] == 1).sum()), int(((kp[:, 3] == 1) & (kp[:, 4] < 1e37)).sum())
 
 
-def warp_kernel_checks(kept: dict, launches: dict, path: str) -> dict:
+def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel_vs_plain") -> dict:
     """Each kernel that ``path`` launched, bit for bit against its plain
     version on the inputs of its last call on it, timed as in phase 2
     (plain versions by the host clock, median of 3: some read back)
@@ -2095,7 +2136,7 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str) -> dict:
             ms=device_ms(kernel), plain_ms=host_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None if library is None else device_ms(library), pairs=pairs, bytes=nbytes,
         )
-        emit(phase="warp_kernel_vs_plain", path=path, tolerance="bit-exact",
+        emit(phase=phase, path=path, tolerance="bit-exact",
              plain_timer="host clock, median of 3", **entry, **extra)
         out[name] = entry
     return out
@@ -2404,6 +2445,267 @@ def warp_other_routes(tw, src, dst, nodes, node_valid, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The SLAM backend (phases 26-27).
+# ---------------------------------------------------------------------------
+
+# The JAX bench's SLAM row (bench.py:1035-1083): 48 frames of a 320x240
+# drifting panorama sweep, keyframes every 5 frames, the scanned front end.
+SLAM_H, SLAM_W, SLAM_FRAMES = 240, 320, 48
+SLAM_KW = dict(keyframe_every=5, loop_min_separation=3, loop_edge_weight=5.0)
+SLAM_STAGES = ("_fusion_scanned", "detect_loop_closures", "_refine_ba", "integrate_sequence")
+# The JAX package's ATE after / before the backend at this row with BA
+# (tests/torch_slam_witness.py, CPU), which breaks tests/test_slam_loop.py's
+# 1.2 bound, and how far the port's ratio may lie from it: the card's
+# front end and association part from the CPU's in the last bits.
+SLAM_JAX_BA_ATE_RATIO, SLAM_ATE_RATIO_TOL = 1.2487801443717221, 0.03
+# tests/test_slam_backend.py:133's mapping-scale BA: K, L, O.
+BA_K, BA_L, BA_O = 64, 100_000, 300_000
+
+
+def slam_intrinsics(h, w):
+    """The bench's Kinect-like field of view at ``w × h``."""
+    from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
+
+    return CameraIntrinsics.make(fx=w * 525.0 / 640.0, fy=w * 525.0 / 640.0, cx=(w - 1) / 2.0,
+                                 cy=(h - 1) / 2.0)
+
+
+def rot_err_deg(p, g) -> float:
+    rel = p[:3, :3].T @ g[:3, :3]
+    return float(np.degrees(np.arccos(np.clip((np.trace(rel) - 1) / 2, -1, 1))))
+
+
+@contextlib.contextmanager
+def slam_stage_launches(out: dict):
+    """A context in which each stage of ``run_slam`` that launches kernels
+    (the scanned front end, the loop closures, the pose graph, the BA and
+    the map rebuild) adds the launches it made to ``out[stage]``."""
+    from unittest import mock
+
+    from cilantro_tpu_torch.slam import keyframes, slam as tslam_mod
+
+    def counted(name, real):
+        def wrapper(*args, **kwargs):
+            before = all_counts()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                after = all_counts()
+                out[name] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for name in SLAM_STAGES:
+            stack.enter_context(mock.patch.object(tslam_mod, name, counted(name, getattr(tslam_mod, name))))
+        stack.enter_context(mock.patch.object(
+            keyframes.KeyframeGraph, "optimize", counted("pose_graph", keyframes.KeyframeGraph.optimize)))
+        yield out
+
+
+def slam_path(card):
+    """Phase 26: ``run_slam`` at the JAX bench's SLAM row, once without and
+    once with the landmark BA. Returns each configuration's launches by
+    stage and the kernel entries of the path."""
+    from cilantro_tpu_torch import slam as tslam
+
+    k = slam_intrinsics(SLAM_H, SLAM_W)
+    t0 = time.perf_counter()
+    depths, gt = tslam.synthetic_panorama_sequence(SLAM_FRAMES, SLAM_H, SLAM_W, k, seed=3, depth_noise=0.008)
+    emit(phase="slam_input", frames=SLAM_FRAMES, height=SLAM_H, width=SLAM_W, render_s=time.perf_counter() - t0)
+    fcfg = tslam.FusionConfig(localize_stride=1, icp_iterations=8)
+    paths, entries = [], {}
+    for run_ba in (False, True):
+        scfg = tslam.SlamConfig(run_ba=run_ba, **SLAM_KW)
+
+        def run(stats=None):
+            return tslam.run_slam(depths, k, map_capacity=8 * SLAM_H * SLAM_W, cfg=fcfg, slam=scfg,
+                                  frontend="scanned", device="cuda", stats=stats)
+
+        reset_all_counts()
+        kept, stages, stats = {}, {}, {}
+        t0 = time.perf_counter()
+        with last_kernel_calls(kept), slam_stage_launches(stages):
+            fmap, res = run(stats)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = all_counts()
+        timed = {}
+        t0 = time.perf_counter()
+        run(timed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof = "run_ba=True's covers every stage"
+        if run_ba:
+            try:
+                prof = profile_once(run, wall_ms)
+            except Exception as e:  # informational: report and go on
+                prof = {"device_busy": "not measured", "error": f"{type(e).__name__}: {e}"}
+        odo, ref = res.odometry_poses, res.refined_poses
+        yaw = [max(rot_err_deg(p, g) for p, g in zip(poses, gt)) for poses in (odo, ref)]
+        end = [rot_err_deg(poses[-1], gt[-1]) for poses in (odo, ref)]
+        ate = [tslam.ate_rmse(poses, gt, device="cuda") for poses in (odo, ref)]
+        pts = fmap.points[fmap.valid].cpu().numpy()
+        on_wall = float((np.abs(np.linalg.norm(pts[:, [0, 2]], axis=1) - 2.5) < 0.7).mean())
+        fe = stats["frontend"]
+        emit(phase="slam_path", entry="run_slam", frontend="scanned", run_ba=run_ba,
+             keyframes=len(res.keyframe_indices), loop_closures=res.num_loop_closures,
+             max_orientation_error_deg={"before": yaw[0], "after": yaw[1]},
+             endpoint_orientation_error_deg={"before": end[0], "after": end[1]},
+             ate_m={"before": ate[0], "after": ate[1]}, ate_ratio=ate[1] / ate[0], map_points=len(pts), on_wall_share=on_wall,
+             pose_graph_update=res.pose_graph_update,
+             stage_host_ms={n: v * 1e3 for n, v in timed["stage_seconds"].items()},
+             first_run_stage_host_ms={n: v * 1e3 for n, v in stats["stage_seconds"].items()},
+             first_run_s=first_s, wall_ms=wall_ms,
+             frontend_device_ms_per_frame=fe["device_seconds_per_frame"] * 1e3,
+             frontend_launches_per_replay=fe["launches_per_frame"], stage_launches=stages,
+             profile=prof, card=card)
+        ate_ok = (abs(ate[1] / ate[0] - SLAM_JAX_BA_ATE_RATIO) <= SLAM_ATE_RATIO_TOL if run_ba
+                  else ate[1] <= 1.2 * ate[0])
+        ok = (res.num_loop_closures >= 1 and yaw[0] > 1.0 and yaw[1] < 0.65 * yaw[0]
+              and end[1] < 0.65 * end[0] and len(pts) > SLAM_H * SLAM_W and on_wall > 0.95
+              and np.isfinite(pts).all() and ate_ok)
+        if not ok:
+            raise AssertionError(f"run_slam (run_ba={run_ba}): loops {res.num_loop_closures}, max "
+                                 f"orientation error {yaw} deg, endpoint {end} deg, ATE {ate} m, "
+                                 f"{len(pts)} points, {on_wall} on the wall")
+        label = f"run_slam(run_ba={run_ba})"
+        paths += [{"phase": 26, "path": f"{label}: {stage}", "launches": launches_}
+                  for stage, launches_ in stages.items()]
+        paths.append({"phase": 26, "path": f"{label}: front end, launches a replay (x {SLAM_FRAMES - 1})",
+                      "launches": fe["launches_per_frame"]})
+        entries.update(warp_kernel_checks(kept, launches, f"phase 26, {label}", phase="slam_kernel_vs_plain"))
+    return paths, entries
+
+
+def inverse_route_check(card):
+    """The batched inverses of the BA on the card: ``torch.linalg.inv_ex``
+    on 100,000 random SPD 3×3 matrices (H_ll's shape at mapping scale) and
+    64 6×6 ones, with its status, the largest |A·A⁻¹ − I|, device ms and no
+    host sync."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for n, d in ((BA_L, 3), (BA_K, 6)):
+        a = torch.randn((n, d, d), device="cuda", generator=g)
+        a = a @ a.transpose(-1, -2) + 0.1 * torch.eye(d, device="cuda")
+        inv, info = torch.linalg.inv_ex(a)
+        resid = float((a @ inv - torch.eye(d, device="cuda")).abs().max())
+        if int(info.abs().max()) != 0 or not resid < 1e-2:
+            raise AssertionError(f"inv_ex on {n} {d}x{d} matrices: status {int(info.abs().max())}, "
+                                 f"residual {resid}")
+        no_host_sync(f"torch.linalg.inv_ex, {n} {d}x{d}", lambda: torch.linalg.inv_ex(a))
+        out[f"{n}x{d}x{d}"] = dict(route="torch.linalg.inv_ex", status=0, max_residual=resid,
+                                   ms=device_ms(lambda: torch.linalg.inv_ex(a)))
+    emit(phase="slam_inverse_route", card=card, **out)
+    return out
+
+
+def slam_ba_mapping(card):
+    """Phase 27: ``bundle_adjust`` at mapping scale (K = 64, L = 100,000,
+    O = 300,000, seed 0; the JAX test's max_iterations=3, max_cg=30), both
+    PCG forms, two runs with the same bits, a step with no host sync; then
+    the pose graph and the BA card against CPU on small problems. Returns
+    the launches and the kernel entries of the path."""
+    from cilantro_tpu_torch import interop
+    from cilantro_tpu_torch.slam import bundle_adjustment as tba
+    from cilantro_tpu_torch.tools import pcg_forms
+    from cilantro_tpu_torch.tools.slam_problems import mapping_ba_problem
+
+    dev = torch.device("cuda")
+    inv = inverse_route_check(card)
+    problem = mapping_ba_problem(BA_K, BA_L, BA_O)
+    args = interop.ba_problem_from_numpy(*problem, device=dev)
+    poses, lmks, cam, lmk, obs = args
+    seg = tba._Segments.of(cam, lmk, BA_K, BA_L)
+    w = torch.ones(BA_O, device=dev)
+    before = float(tba._ba_blocks(poses, lmks, cam, lmk, obs, w, seg)[5])
+
+    def solve(max_cg=30, stats=None):
+        return tba.bundle_adjust(*args, max_iterations=3, max_cg=max_cg, device=dev, stats=stats)
+
+    forms = {}
+    for max_cg in (30, 60):
+        results = []
+        for form, reads in (("no host read", contextlib.nullcontext), ("a host read an iteration",
+                                                                       lambda: pcg_forms.reads_every(1))):
+            with reads():
+                stats = {}
+                results.append(solve(max_cg, stats))
+                forms[f"max_cg={max_cg}, {form}"] = dict(
+                    host_ms=best_host_ms(lambda: solve(max_cg)), events_ms=once_ms(lambda: solve(max_cg)),
+                    outer_iterations=stats["iterations"], cg_iterations=stats["cg_iterations"])
+        a, b = results
+        if not all(torch.equal(x, y) for x, y in ((a[0].linear, b[0].linear), (a[1], b[1]), (a[2], b[2]))):
+            raise AssertionError(f"max_cg={max_cg}: the two PCG forms gave different bits")
+    reset_all_counts()
+    kept, stats = {}, {}
+    with last_kernel_calls(kept):
+        p1, l1, r1 = solve(stats=stats)
+    torch.cuda.synchronize()
+    launches = all_counts()
+    p2, l2, r2 = solve()
+    same_bits = all(torch.equal(x, y) for x, y in (
+        (p1.linear, p2.linear), (p1.translation, p2.translation), (l1, l2), (r1, r2)))
+    after = float(r1)
+    if not same_bits:
+        raise AssertionError("two mapping-scale BA solves on the card gave different bits")
+    if not (np.isfinite(after) and after < before):
+        raise AssertionError(f"BA residual {before} -> {after}: did not fall")
+    fixed = torch.zeros(BA_K, dtype=torch.bool, device=dev)
+    fixed[0] = True
+    step_args = (poses, lmks, cam, lmk, obs, w, seg, fixed, 1.0 - fixed.float(), 1e-6, 30)
+    no_host_sync("bundle_adjust step at mapping scale", lambda: tba._ba_step(*step_args))
+    host = best_host_ms(solve)
+    try:
+        prof = profile_once(solve, host)
+    except Exception as e:  # informational: report and go on
+        prof = {"device_busy": "not measured", "error": f"{type(e).__name__}: {e}"}
+    emit(phase="slam_ba_mapping", entry="bundle_adjust", cameras=BA_K, landmarks=BA_L, observations=BA_O,
+         max_iterations=3, max_cg=30, residual_before=before, residual_after=after,
+         outer_iterations=stats["iterations"], cg_iterations=stats["cg_iterations"], host_ms=host,
+         events_ms=once_ms(solve), pcg_forms=forms, inverse_route=inv, two_runs_same_bits=same_bits,
+         launches={k_: v for k_, v in launches.items() if v}, profile=prof, card=card)
+    slam_small_card_vs_cpu(tba)
+    entries = warp_kernel_checks(kept, launches, "phase 27, bundle_adjust at mapping scale",
+                                 phase="slam_kernel_vs_plain")
+    return launches, entries
+
+
+def slam_small_card_vs_cpu(tba):
+    """Phase 27b: ``optimize_pose_graph`` on :func:`pose_graph_chain` (a
+    consistent graph, so both converge to its exact optimum) and
+    ``bundle_adjust`` on :func:`small_ba_problem`, card against CPU within
+    1e-4 (float32 sums in other orders)."""
+    from cilantro_tpu_torch import interop
+    from cilantro_tpu_torch.slam import pose_graph as tpg
+    from cilantro_tpu_torch.tools.slam_problems import pose_graph_chain, small_ba_problem
+
+    rng = np.random.default_rng(0)
+    _, init, ei, ej, z = pose_graph_chain(rng)
+    init, z = np.stack(init).astype(np.float32), np.stack(z).astype(np.float32)
+    problem, _ = small_ba_problem(rng)
+
+    def pose_graph(dev):
+        p, _ = tpg.optimize_pose_graph(
+            interop.transform_from_numpy(init[:, :3, :3], init[:, :3, 3], device=dev),
+            torch.as_tensor(ei, device=dev), torch.as_tensor(ej, device=dev),
+            interop.transform_from_numpy(z[:, :3, :3], z[:, :3, 3], device=dev), max_iterations=20)
+        return torch.cat([p.linear.reshape(-1), p.translation.reshape(-1)]).cpu().numpy()
+
+    def ba(dev):
+        p, lm, r = tba.bundle_adjust(*interop.ba_problem_from_numpy(*problem, device=dev),
+                                     max_iterations=15, device=dev)
+        return torch.cat([p.linear.reshape(-1), p.translation.reshape(-1), lm.reshape(-1)]).cpu().numpy()
+
+    diffs = {}
+    for name, fn in (("optimize_pose_graph", pose_graph), ("bundle_adjust", ba)):
+        card, cpu = fn(torch.device("cuda")), fn(torch.device("cpu"))
+        diffs[name] = float(np.abs(card - cpu).max())
+        if not (np.isfinite(card).all() and diffs[name] < 1e-4):
+            raise AssertionError(f"{name}: card and CPU differ by {diffs[name]}")
+    emit(phase="slam_card_vs_cpu", tolerance=1e-4, max_abs_diff=diffs)
+
+
 KERNEL_SOURCES = {
     "knn_full": "cilantro_tpu_torch/csrc/knn_kernels.cu",
     "knn_compact": "cilantro_tpu_torch/csrc/knn_kernels.cu",
@@ -2610,6 +2912,17 @@ def main() -> int:
         warp_paths += [{"phase": 25, "path": f"{label}: graph", "launches": rec["graph"]},
                        {"phase": 25, "path": f"{label}: solve", "launches": rec["solve"]}]
     print(json.dumps({"warp_paths": warp_paths}), flush=True)
+
+    # 26-27. The SLAM backend: run_slam at the bench's SLAM row, then the
+    # bundle adjustment at mapping scale.
+    slam_paths, slam_entries = slam_path(card)
+    ba_launches, ba_entries = slam_ba_mapping(card)
+    slam_paths += [
+        {"phase": 26, "path": "run_slam, every kernel held bit for bit", "held_bit_exact": sorted(slam_entries)},
+        {"phase": 27, "path": "bundle_adjust, K = 64, L = 100,000, O = 300,000",
+         "launches": {k_: v for k_, v in ba_launches.items() if v}, "held_bit_exact": sorted(ba_entries)},
+    ]
+    print(json.dumps({"slam_paths": slam_paths}), flush=True)
 
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]

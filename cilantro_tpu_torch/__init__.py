@@ -13,7 +13,7 @@ The wrapper runs the plain version only for CPU tensors; for a CUDA tensor
 it launches the kernel or raises.
 
 Ported so far (splat fusion, rigid ICP, pool fusion, neighbour engines
-and normals, the scanned drivers, the non-rigid warp):
+and normals, the scanned drivers, the non-rigid warp, the SLAM backend):
 
 core            ``Transform`` and its ops (the closest rotation through a
                 kernel, ``csrc/rotation_kernels.cu``), ``CameraIntrinsics``, depth →
@@ -32,13 +32,16 @@ registration    the 3-D estimators, ``icp``, ``icp_multires``,
                 B-stream (``warp_field.py``, ``warp_field_batched.py``)
 slam            the splat kernels (``slam/splat.py``), splat fusion
                 (``slam/splat_fusion.py``), pool fusion
-                (``slam/fusion.py``), ``run_fusion_sequence``,
-                ``ate_rmse`` and ``synthetic_sequence``
-                (``slam/driver.py``), and both pipelines' scanned
-                drivers, one step captured in a CUDA graph and replayed
-                (``slam/scan.py``)
-interop         build port state (clouds, maps, deformation graphs) from
-                the JAX package's leaves (numpy)
+                (``slam/fusion.py``), ``run_fusion_sequence`` with
+                checkpoints (``slam/checkpoint.py``), ``ate_rmse`` and
+                the synthetic sequences (``slam/driver.py``), both
+                pipelines' scanned drivers, one step captured in a CUDA
+                graph and replayed (``slam/scan.py``), and keyframe SLAM:
+                keyframes and loop closures, the pose graph, single-device
+                Schur bundle adjustment and ``run_slam``
+interop         build port state (clouds, maps, deformation graphs,
+                keyframe graphs, BA problems) from the JAX package's
+                leaves (numpy)
 tools           the wide-row probe and its ``scale2`` kernel
 """
 

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .containers import PointCloud
 from .grid import floor_int32
 from .transforms import Transform, transform_normals, transform_points
@@ -50,6 +51,24 @@ class CameraIntrinsics:
     @staticmethod
     def kinect_640() -> "CameraIntrinsics":
         return CameraIntrinsics.make(525.0, 525.0, 319.5, 239.5)
+
+    def matrix(self, device="cuda") -> torch.Tensor:
+        """The 3×3 pinhole matrix ``K``, float32 on ``device``."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32, device=resolve_device(device),
+        )
+
+
+def depth_to_metric(
+    raw: torch.Tensor, scale: float = 0.001, max_depth: Optional[float] = None
+) -> torch.Tensor:
+    """Raw sensor depth → metric float32, 0 = invalid (beyond ``max_depth``
+    too)."""
+    z = raw.to(torch.float32) * scale
+    if max_depth is not None:
+        z = torch.where(z > max_depth, 0.0, z)
+    return z
 
 
 def depth_to_points(
@@ -114,6 +133,24 @@ def depth_to_points_normals(
         nrm_o = transform_normals(pose, nrm_o)
     pts_o = torch.where(valid.reshape(-1)[:, None], pts_o, 1e30)
     return pts_o, nrm_o, (valid & nvalid).reshape(-1)
+
+
+def rgbd_to_cloud(
+    depth: torch.Tensor,
+    colors: Optional[torch.Tensor],
+    intrinsics: CameraIntrinsics,
+    pose: Optional[Transform] = None,
+    compute_normals: bool = False,
+) -> PointCloud:
+    """RGBD → ``PointCloud``; ``colors`` is ``(H, W, 3)`` in [0, 1] or
+    None."""
+    if compute_normals:
+        pts, nrm, valid = depth_to_points_normals(depth, intrinsics, pose)
+    else:
+        pts, valid = depth_to_points(depth, intrinsics, pose)
+        nrm = None
+    cols = colors.reshape(-1, 3) if colors is not None else None
+    return PointCloud(points=pts, normals=nrm, colors=cols, valid=valid)
 
 
 def project_points(

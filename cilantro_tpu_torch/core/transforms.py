@@ -31,11 +31,21 @@ class Transform:
     def dim(self) -> int:
         return self.linear.shape[-1]
 
+    @property
+    def batch_shape(self):
+        return self.linear.shape[:-2]
+
+    def __matmul__(self, other: "Transform") -> "Transform":
+        return compose(self, other)
+
     def apply(self, points: torch.Tensor) -> torch.Tensor:
         return transform_points(self, points)
 
     def apply_normals(self, normals: torch.Tensor, rigid: bool = True) -> torch.Tensor:
         return transform_normals(self, normals, rigid=rigid)
+
+    def inverse(self, rigid: bool = True) -> "Transform":
+        return inverse(self, rigid=rigid)
 
     def matrix(self) -> torch.Tensor:
         """Homogeneous ``(..., D+1, D+1)`` matrix."""
@@ -105,6 +115,12 @@ def transform_normals(
             torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-30
         )
     return n
+
+
+def transform_points_normals(
+    tf: Transform, points: torch.Tensor, normals: torch.Tensor, rigid: bool = True
+):
+    return transform_points(tf, points), transform_normals(tf, normals, rigid=rigid)
 
 
 _JACOBI_SWEEPS = 4

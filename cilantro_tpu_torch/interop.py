@@ -18,6 +18,7 @@ from .core.transforms import Transform
 from .neighbors.api import Neighborhoods
 from .registration.warp_field import DeformationGraph, _with_segment_lengths
 from .slam.fusion import FusionMap
+from .slam.keyframes import Keyframe, KeyframeGraph
 from .slam.splat_fusion import SplatMap
 
 
@@ -110,3 +111,37 @@ def deformation_graph_from_numpy(device="cuda", **leaves) -> DeformationGraph:
         for name, a in leaves.items()
     }
     return _with_segment_lengths(DeformationGraph(caches_sorted=caches_sorted, **fields))
+
+
+def keyframe_graph_from_numpy(keyframes, edge_i, edge_j, measurements, edge_weights) -> KeyframeGraph:
+    """A port ``KeyframeGraph`` from a JAX one's fields: ``keyframes`` (each
+    with ``index``, ``pose``, ``points``, ``normals``, all host numpy in
+    the JAX package too) and the edge lists. Every array is copied, so the
+    two graphs grow apart from here on."""
+
+    def copy(a):
+        return None if a is None else np.array(a)
+
+    return KeyframeGraph(
+        keyframes=[Keyframe(int(kf.index), copy(kf.pose), copy(kf.points), copy(kf.normals))
+                   for kf in keyframes],
+        edge_i=[int(i) for i in edge_i],
+        edge_j=[int(j) for j in edge_j],
+        measurements=[copy(z) for z in measurements],
+        edge_weights=[float(w) for w in edge_weights],
+    )
+
+
+def ba_problem_from_numpy(linear, translation, landmarks, cam_idx, lmk_idx, observations,
+                          device="cuda"):
+    """The arguments of the port's ``bundle_adjust`` from numpy: ``(poses,
+    landmarks, cam_idx, lmk_idx, observations)`` on ``device``, e.g. the
+    problem the JAX package built, for ``bundle_adjust(*problem, ...)``."""
+    dev = resolve_device(device)
+    return (
+        transform_from_numpy(linear, translation, device=dev),
+        _leaf(landmarks, np.float32, dev),
+        _leaf(cam_idx, np.int64, dev),
+        _leaf(lmk_idx, np.int64, dev),
+        _leaf(observations, np.float32, dev),
+    )

@@ -1,1 +1,57 @@
-"""Splat fusion and its kernels (port of ``cilantro_tpu.slam``)."""
+"""Fusion, keyframe SLAM and its backend (port of ``cilantro_tpu.slam``).
+
+Re-exports what the JAX package's ``slam`` exports from the ported
+modules. Not ported yet: ``bundle_adjust_sharded`` (multi-device), batched
+fusion and the pipelined driver."""
+
+from .fusion import (  # noqa: F401
+    FusionConfig,
+    FusionMap,
+    cleanup_map,
+    compact_map,
+    empty_map,
+    fusion_step,
+    init_map_from_frame,
+    integrate_frame,
+    localize,
+    radial_weights,
+)
+from .pose_graph import optimize_pose_graph, pose_error  # noqa: F401
+from .bundle_adjustment import bundle_adjust  # noqa: F401
+from .driver import (  # noqa: F401
+    FusionMetrics,
+    ate_rmse,
+    run_fusion_sequence,
+    run_fusion_sequence_scanned,
+    synthetic_panorama_sequence,
+    synthetic_sequence,
+)
+from .slam import (  # noqa: F401
+    SlamConfig,
+    SlamResult,
+    integrate_sequence,
+    run_slam,
+)
+from .keyframes import (  # noqa: F401
+    Keyframe,
+    KeyframeGraph,
+    detect_loop_closures,
+    relative_pose,
+    spawn_keyframe,
+)
+from .checkpoint import (  # noqa: F401
+    FusionCheckpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
+from .splat_fusion import (  # noqa: F401
+    SplatConfig,
+    SplatMap,
+    extract_cloud,
+    init_splat_map,
+    run_splat_sequence,
+    run_splat_sequence_scanned,
+    splat_fusion_step,
+    splat_integrate,
+    splat_localize,
+)

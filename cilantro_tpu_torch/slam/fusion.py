@@ -36,7 +36,7 @@ import torch
 
 from .. import resolve_device
 from ..core.coalesced import coalesced_gather
-from ..core.rgbd import CameraIntrinsics, _zbuffer_winner, scalar_like
+from ..core.rgbd import CameraIntrinsics, _zbuffer_winner
 from ..core.transforms import Transform, compose, inverse
 from ..registration.icp import ICPResult, icp_projective_packed
 
@@ -155,15 +155,17 @@ def radial_weights(
     width: int,
     intrinsics: CameraIntrinsics,
     sigma_px: float = 120.0,
+    dtype=torch.float32,
     device="cuda",
 ) -> torch.Tensor:
     """Per-pixel radial confidence ``exp(-0.5 r² / σ²)``, ``r`` the pixel
-    distance from the principal point, flattened row-major."""
+    distance from the principal point, flattened row-major, in ``dtype``."""
     device = resolve_device(device)
-    u = (torch.arange(width, dtype=torch.float32, device=device) - intrinsics.cx)[None, :]
-    v = (torch.arange(height, dtype=torch.float32, device=device) - intrinsics.cy)[:, None]
+    u = (torch.arange(width, dtype=dtype, device=device) - intrinsics.cx)[None, :]
+    v = (torch.arange(height, dtype=dtype, device=device) - intrinsics.cy)[:, None]
     r2 = u * u + v * v
-    return torch.exp(-0.5 * r2 / scalar_like(sigma_px * sigma_px, r2)).reshape(-1)
+    sigma2 = torch.full((), sigma_px * sigma_px, dtype=dtype, device=device)
+    return torch.exp(-0.5 * r2 / sigma2).reshape(-1)
 
 
 def compact_map(fmap: FusionMap) -> FusionMap:

@@ -97,12 +97,14 @@ def scan(
     xs: torch.Tensor,
     *,
     counters: Sequence[Dict[str, int]] = (),
+    runs: int = RUNS,
 ) -> Scanned:
     """Run ``step`` over ``xs`` (at least one step) from ``carry0``
-    ``RUNS`` times and keep the fastest by the host clock, as the JAX
+    ``runs`` times and keep the fastest by the host clock, as the JAX
     drivers do, each run ended by the read-back of its stacked ``ys``. On
-    the card the capture and one untimed run of the sequence come first
-    (the JAX driver's compile and first run); ``counters`` are the
+    the card the capture comes first and, when ``runs > 1``, one untimed
+    run of the sequence (the JAX driver's compile and first run);
+    ``runs=1`` is one pass of the sequence after the capture. ``counters`` are the
     launch-count dicts of the kernels the step may launch. The step
     returns new tensors: none of its outputs may be a view of another
     position's carry buffer, which the copy-back would overwrite."""
@@ -110,7 +112,8 @@ def scan(
     if dev.type == "cuda":
         graph = _GraphStep(step, carry0, xs[0], counters)
         launches = graph.launches
-        graph.run(carry0, xs)
+        if runs > 1:
+            graph.run(carry0, xs)
 
         def one_run():
             return graph.carry, graph.run(carry0, xs)
@@ -126,7 +129,7 @@ def scan(
             return carry, tuple(torch.stack(col) for col in zip(*ys))
 
     best = best_dev = float("inf")
-    for _ in range(RUNS):
+    for _ in range(runs):
         before = _counts(counters)
         if dev.type == "cuda":
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -95,6 +95,10 @@ class SplatMap:
     rows: torch.Tensor
     pose: Transform  # camera-to-world of the home frame
 
+    @property
+    def layers(self) -> int:
+        return self.rows.shape[0]
+
 
 def _img(flat: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(H·W, C) → (C, H, W)."""

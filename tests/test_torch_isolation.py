@@ -136,3 +136,39 @@ def test_warp_entry_points_raise_without_cuda(monkeypatch):
         )
     tf, it, _ = tw.icp_warp_field(graph, src, src, max_iterations=2, device="cpu")
     assert tf.linear.device.type == "cpu" and it.device.type == "cpu"
+
+
+def test_slam_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The SLAM backend's entry points default to the card: without CUDA
+    they raise, and run on the CPU only when asked."""
+    from cilantro_tpu_torch import interop, slam
+    from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
+    from cilantro_tpu_torch.core.transforms import identity
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    k = CameraIntrinsics.make(20.0, 20.0, 7.5, 5.5)
+    depths = [np.full((12, 16), 2.0, np.float32)] * 3
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        slam.run_slam(depths, k)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        slam.integrate_sequence(depths, [np.eye(4, dtype=np.float32)] * 3, k)
+    poses = identity(batch_shape=(2,), device="cpu")
+    problem = (np.zeros((1, 3), np.float32), [0, 1], [0, 0], np.zeros((2, 3), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        slam.bundle_adjust(poses, *problem)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        interop.ba_problem_from_numpy(np.eye(3)[None], np.zeros((1, 3)), *problem)
+    graph = slam.KeyframeGraph.empty()
+    for f in range(2):
+        slam.spawn_keyframe(graph, f, np.eye(4, dtype=np.float32), np.ones((8, 3), np.float32), None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        graph.optimize()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        slam.detect_loop_closures(graph, min_separation=1)
+    path = str(tmp_path / "ck.npz")
+    slam.save_checkpoint(path, slam.empty_map(8, device="cpu"), [np.eye(4, dtype=np.float32)], 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        slam.load_checkpoint(path).fusion_map()
+    assert slam.load_checkpoint(path).fusion_map(device="cpu").data.device.type == "cpu"
+    refined, _ = graph.optimize(device="cpu")
+    assert len(refined) == 2
