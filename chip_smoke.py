@@ -44,8 +44,9 @@ in order; any failure raises and exits non-zero without the final line:
    survivors (its masked fallback); the three launches under
    ``torch.cuda.set_sync_debug_mode("error")``; each case timed as in phase
    2 beside its arithmetic bound (D + 2 products, D + 1 sums and a compare
-   per visited pair of D-dimensional points, at 67 TFLOP/s; plain versions
-   of the 2-D and wide-gate cases timed once) with the kernel's launch
+   per visited pair of D-dimensional points, at 67 TFLOP/s; the compact
+   and masked kernels' plain versions timed once after a warm-up run) with
+   the kernel's launch
    parameters and, for the fused kernel, ``torch.cdist`` + ``min`` as a
    two-call yardstick;
 6. rigid ICP, the second main path: ``icp_multires`` registers frame 1 of
@@ -196,7 +197,26 @@ in order; any failure raises and exits non-zero without the final line:
     solves with the same bits, one step under
     ``torch.cuda.set_sync_debug_mode("error")``, a profile window; then
     ``optimize_pose_graph`` and ``bundle_adjust`` card against CPU on
-    small problems within 1e-4.
+    small problems within 1e-4;
+28. ``run_batched_fusion_sequences`` at the JAX bench's multi-stream row
+    (bench.py:440-478, uncut): B = 8 streams of 12 synthetic 640×480
+    frames (seeds 100-107), pools of 430,080 rows, stride-2 localize, one
+    captured B-stream step replayed a frame. It fails unless every
+    stream's ATE is below 2e-4 m (the pool bound), each stream's poses lie
+    within 1e-4 of ``run_fusion_sequence_scanned`` on that stream alone
+    (one pass), a replay launches the gather and the rotation kernel as
+    often at B = 8 as at B = 1 and as the single-stream replay, the same
+    steps run eagerly give the replay's poses and pools bit for bit, and
+    each gather site (model rows, inverse-gather update, ICP targets) and
+    the rotation kernel on the inputs of their last call agree with their
+    plain versions bit for bit (timed as the warp's kernels, beside the
+    byte bound and ``torch.index_select``); aggregate frames/s, host and
+    device ms a step (and at B = 1) and a profile window's idle share;
+29. ``run_fusion_sequence_pipelined`` (front end on a side CUDA stream,
+    tracker on the step's stream) on phase 22's frames and configuration:
+    poses, ICP iterations and pool bit for bit those of
+    ``run_fusion_sequence_scanned``; host and device ms a frame of both in
+    alternating turns.
 
 Before phase 23 one empty launch (``torch.cuda._sleep(0)``) is timed as in
 phase 2, beside the gather's ICP-stream time and bound (informational).
@@ -212,7 +232,8 @@ replay's launches at capture, where the wrappers run. The ``warp_paths``
 line before the kernels line gives each kernel's launches on phases 23-25,
 the ``slam_paths`` line on phases 26-27 (by stage; the scanned front end's
 wrappers run at its warm-up step and its capture, and the line gives its
-launches a replay beside them).
+launches a replay beside them), the ``batched_paths`` line on phases
+28-29 (launches a replay, and those counted over the run).
 
 Every line of standard output before the last two is one JSON object. The
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -703,10 +724,10 @@ def nn1_kernel_checks(nn, pair, coarse, entry_inputs):
         emit(phase="nn1_kernel_vs_plain", tolerance="bit-exact", shape=shape, **entry, **extra)
         return entry
 
-    def split_cases(case, src, dst, mcd, dim, plain_timer, routes=("nn1_compact", "nn1_masked"),
-                    over_budget=False):
+    def split_cases(case, src, dst, mcd, dim, routes=("nn1_compact", "nn1_masked"), over_budget=False):
         """The compact and masked kernels at the first pass of ``icp`` with
-        the gate ``mcd`` on ``src`` → ``dst``; returns their entries."""
+        the gate ``mcd`` on ``src`` → ``dst`` (plain versions timed once:
+        each takes hundreds of ms); returns their entries."""
         qp, kp, within, budget, tq, tm = first_pass(nn, src, dst, mcd)
         terms = nn._live_terms(dim)
         survivors = int(within.sum())
@@ -728,14 +749,14 @@ def nn1_kernel_checks(nn, pair, coarse, entry_inputs):
                 "nn1_compact", shape,
                 lambda: nn.compact_rows(qp, kp, qt, kt, fl, tile_q=tq, tile_m=tm, terms=terms),
                 lambda: nn.compact_rows_plain(qp, kp, qt, kt, fl, tq, tm),
-                pairs, io_bytes + 3 * 4 * budget, dim=dim, plain_timer=plain_timer, case=case,
+                pairs, io_bytes + 3 * 4 * budget, dim=dim, plain_timer=once_ms, case=case,
                 budget=budget, terms=terms,
             )
         entries["nn1_masked"] = record(
             "nn1_masked", shape,
             lambda: nn.masked_rows(qp, kp, mask, tile_q=tq, tile_m=tm, terms=terms),
             lambda: nn.masked_rows_plain(qp, kp, mask, tq, tm),
-            pairs, io_bytes + mask.numel() * 4, dim=dim, plain_timer=plain_timer, case=case,
+            pairs, io_bytes + mask.numel() * 4, dim=dim, plain_timer=once_ms, case=case,
             terms=terms,
         )
         return entries, (qp, kp, within, survivors, tq, tm, terms)
@@ -761,13 +782,13 @@ def nn1_kernel_checks(nn, pair, coarse, entry_inputs):
     # (the compact kernel's row), then the same clouds in 2-D.
     src, dst = pair
     first, (qp, kp, within, survivors, tq, tm, terms) = split_cases(
-        "first pass", src, dst, BENCH_LEVELS[1][3], 3, device_ms)
+        "first pass", src, dst, BENCH_LEVELS[1][3], 3)
     out["nn1_compact"] = first["nn1_compact"]
     flat = [(c[0][:, :2].contiguous(),) + tuple(c[1:]) for c in (src, dst)]
-    split_cases("first pass, x-y only", flat[0], flat[1], BENCH_LEVELS[1][3], 2, once_ms)
+    split_cases("first pass, x-y only", flat[0], flat[1], BENCH_LEVELS[1][3], 2)
     # The masked kernel at its own path's first pass: icp with the 0.5 m gate
     # overflows the budget (the masked kernel's row).
-    wide, _ = split_cases("wide-gate first pass", src, dst, 0.25, 3, once_ms, routes=("nn1_masked",),
+    wide, _ = split_cases("wide-gate first pass", src, dst, 0.25, 3, routes=("nn1_masked",),
                           over_budget=True)
     out["nn1_masked"] = wide["nn1_masked"]
     # The compact wrapper's fallback: a budget one short of the survivors.
@@ -2706,6 +2727,207 @@ def slam_small_card_vs_cpu(tba):
     emit(phase="slam_card_vs_cpu", tolerance=1e-4, max_abs_diff=diffs)
 
 
+# ---------------------------------------------------------------------------
+# Multi-stream and pipelined fusion (phases 28-29).
+# ---------------------------------------------------------------------------
+
+BATCH_STREAMS, BATCH_FRAMES = 8, 12  # the JAX bench's multi-stream row (bench.py:440-478)
+
+
+@contextlib.contextmanager
+def gather_sites_recorded(kept: dict):
+    """A context in which each gather of the batched step keeps the
+    arguments of its last call by site: the model rows (``batched_fusion``),
+    the inverse-gather update (``fusion.apply_pool_update``), the ICP
+    targets (``projective``)."""
+    from unittest import mock
+
+    from cilantro_tpu_torch.core import coalesced as cg
+    from cilantro_tpu_torch.correspondence import projective
+    from cilantro_tpu_torch.slam import batched_fusion, fusion
+
+    def recorder(site):
+        def recording(src, idx):
+            kept[site] = (src, idx)
+            return cg.coalesced_gather(src, idx)
+        return recording
+
+    with mock.patch.object(batched_fusion, "coalesced_gather", recorder("integrate_rows")), \
+            mock.patch.object(fusion, "coalesced_gather", recorder("inverse_gather_update")), \
+            mock.patch.object(projective, "coalesced_gather", recorder("icp_projective")):
+        yield kept
+
+
+def batched_eager_pass(stacks, k, sites: dict, rotation: dict):
+    """The B-stream driver's steps run eagerly on the card from the same
+    seeded pools under ``torch.cuda.set_sync_debug_mode("error")`` (no step
+    may wait on the host), recording each gather site's and the rotation
+    kernel's last call: ``(pools, poses (B, F, 4, 4))``."""
+    from cilantro_tpu_torch.core.rgbd import depth_to_points_normals
+    from cilantro_tpu_torch.core.transforms import identity
+    from cilantro_tpu_torch.slam import batched_fusion as bf
+    from cilantro_tpu_torch.slam import fusion
+
+    d = torch.as_tensor(stacks, device="cuda")
+    bsz = d.shape[0]
+    p, n, v = depth_to_points_normals(d[:, 0], k)
+    data = bf.stack_maps([fusion.init_map_from_frame(POOL_CAPACITY, p[b], n[b], None, v[b])
+                          for b in range(bsz)])
+    poses = identity(3, batch_shape=(bsz,), device="cuda")
+    _, packed = bf.batched_seed_localize_target(data, poses, k, H, W)
+    mats = [poses.matrix()]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with gather_sites_recorded(sites), rotation_recorded(rotation):
+            for f in range(1, d.shape[1]):
+                p, n, v = depth_to_points_normals(d[:, f], k)
+                data, poses, _, _, packed = bf.batched_fusion_step(
+                    data, p, n, None, v, poses, k, packed, height=H, width=W, cfg=pool_config())
+                mats.append(poses.matrix())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    emit(phase="no_host_sync", step=f"batched fusion step, B = {bsz}, {d.shape[1] - 1} steps")
+    return data, torch.stack(mats, 1).cpu().numpy()
+
+
+def batched_path(card):
+    """Phase 28: ``run_batched_fusion_sequences`` at the JAX bench's
+    multi-stream row, uncut. Returns the ``batched_paths`` entries and the
+    row-4 and rotation entries of the path."""
+    from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
+    from cilantro_tpu_torch.slam import batched_fusion as bf
+    from cilantro_tpu_torch.slam.driver import _fusion_scanned, ate_rmse, synthetic_sequence
+
+    k = CameraIntrinsics.kinect_640()
+    cfg = pool_config()
+    t_phase = t0 = time.perf_counter()
+    seqs = [synthetic_sequence(BATCH_FRAMES, H, W, k, seed=100 + b) for b in range(BATCH_STREAMS)]
+    stacks = np.stack([np.stack(d) for d, _ in seqs])
+    emit(phase="batched_input", streams=BATCH_STREAMS, frames=BATCH_FRAMES, height=H, width=W,
+         render_s=time.perf_counter() - t0)
+
+    reset_all_counts()
+    stats = {}
+    data, met = bf.run_batched_fusion_sequences(stacks, k, map_capacity=POOL_CAPACITY, cfg=cfg,
+                                                device="cuda", stats=stats)
+    torch.cuda.synchronize()
+    counted = {name: v for name, v in all_counts().items() if v}
+    per_step = stats["launches_per_step"]
+    if any(per_step.get(name, 0) == 0 for name in ("coalesced_gather", "project_to_rotation")):
+        raise AssertionError(f"batched path: a kernel of the path never launched: {per_step}")
+    ates = [ate_rmse(list(met.poses[b]), seqs[b][1], device="cuda") for b in range(BATCH_STREAMS)]
+    if not max(ates) < 2e-4:
+        raise AssertionError(f"batched path: stream ATEs {ates}, bound 2e-4 m")
+    live = data[data[..., 10] > 0.5]
+    if not (min(met.num_map_points) > 0.9 * H * W and bool(torch.isfinite(live[:, 0:6]).all())):
+        raise AssertionError(f"batched pools hold {met.num_map_points} live points or non-finite values")
+
+    # Each stream against the single-stream scanned driver on it.
+    diffs, single_launches = [], None
+    for b in range(BATCH_STREAMS):
+        single = {}
+        _, sm = _fusion_scanned(list(stacks[b]), k, POOL_CAPACITY, cfg, torch.device("cuda"), single, 1)
+        diffs.append(float(np.abs(np.stack(sm.poses) - met.poses[b]).max()))
+        single_launches = single_launches or single["launches_per_frame"]
+    if not max(diffs) <= 1e-4:
+        raise AssertionError(f"batched path: streams {diffs} from their single-stream runs, bound 1e-4")
+
+    # Launches a replay: B = 1 against B = 8 and the single-stream replay.
+    one = {}
+    _, met_one = bf.run_batched_fusion_sequences(stacks[:1], k, map_capacity=POOL_CAPACITY, cfg=cfg,
+                                                 device="cuda", stats=one)
+    if not (per_step == one["launches_per_step"] == single_launches):
+        raise AssertionError(f"launches a replay: B = 8 {per_step}, B = 1 {one['launches_per_step']}, "
+                             f"single stream {single_launches}")
+
+    # The same steps eagerly: the replay's bits, and each kernel's last call.
+    sites, rotation = {}, {}
+    e_data, e_poses = batched_eager_pass(stacks, k, sites, rotation)
+    replay_equals_eager = bool(np.array_equal(e_poses, met.poses)) and torch.equal(
+        e_data.view(torch.int32), data.view(torch.int32))
+    if not replay_equals_eager:
+        raise AssertionError("batched path: the replay and the eager steps differ")
+    entries = {}
+    for site in ("integrate_rows", "inverse_gather_update", "icp_projective"):
+        entries[site] = warp_kernel_checks(
+            {"coalesced_gather": (sites[site], {})}, {"coalesced_gather": per_step["coalesced_gather"]},
+            f"phase 28, batched {site}, last step", phase="batched_kernel_vs_plain",
+        )["coalesced_gather"]
+    entries["rotation"] = warp_kernel_checks(
+        {"project_to_rotation": ((rotation["project_to_rotation"],), {})},
+        {"project_to_rotation": per_step["project_to_rotation"]},
+        "phase 28, batched ICP, last iteration", phase="batched_kernel_vs_plain",
+    )["project_to_rotation"]
+
+    steps = BATCH_FRAMES - 1
+    try:
+        busy = profile_once(
+            lambda: bf.run_batched_fusion_sequences(stacks, k, map_capacity=POOL_CAPACITY, cfg=cfg,
+                                                    device="cuda"),
+            met.seconds_per_step * 1e3, runs=4 * steps + 1)
+    except Exception as e:  # informational: report and go on
+        busy = {"device_busy": "not measured", "error": f"{type(e).__name__}: {e}"}
+    emit(
+        phase="batched_path", entry="run_batched_fusion_sequences", streams=BATCH_STREAMS,
+        frames=BATCH_FRAMES, map_capacity=POOL_CAPACITY, localize_stride=2,
+        host_ms_per_step=met.seconds_per_step * 1e3, device_ms_per_step=stats["device_seconds_per_step"] * 1e3,
+        aggregate_fps=met.aggregate_fps, aggregate_fps_device=BATCH_STREAMS / stats["device_seconds_per_step"],
+        host_ms_per_step_b1=met_one.seconds_per_step * 1e3,
+        device_ms_per_step_b1=one["device_seconds_per_step"] * 1e3,
+        ate_m=ates, max_pose_diff_vs_single_stream=diffs, icp_iterations=stats["icp_iterations"].tolist(),
+        map_points=met.num_map_points.tolist(), launches_per_replay=per_step,
+        launches_per_replay_b1=one["launches_per_step"], launches_single_stream_replay=single_launches,
+        launches_counted=counted, replay_equals_eager_steps=replay_equals_eager, profile=busy,
+        phase_s=time.perf_counter() - t_phase, card=card,
+    )
+    paths = [
+        {"phase": 28, "path": f"run_batched_fusion_sequences, B = {BATCH_STREAMS}, launches a replay "
+                              f"(x {steps} a run)", "launches": per_step},
+        {"phase": 28, "path": "the same, counted (seed target, warm-up step and capture)",
+         "launches": counted},
+        {"phase": 28, "path": "B = 1, launches a replay", "launches": one["launches_per_step"]},
+        {"phase": 28, "path": "run_fusion_sequence_scanned, one stream, launches a replay",
+         "launches": single_launches},
+        {"phase": 28, "path": "every gather site and the rotation kernel held bit for bit",
+         "held_bit_exact": sorted(entries)},
+    ]
+    return paths, entries
+
+
+def pipelined_path(depths, k, card):
+    """Phase 29: ``run_fusion_sequence_pipelined`` on phase 22's frames and
+    configuration against ``run_fusion_sequence_scanned``: the same poses,
+    iterations and pool bit for bit; host and device ms a frame of both in
+    alternating turns (pipelined, scanned, scanned, pipelined)."""
+    from cilantro_tpu_torch.slam.driver import run_fusion_sequence_scanned
+    from cilantro_tpu_torch.slam.pipeline import run_fusion_sequence_pipelined
+
+    t_phase = time.perf_counter()
+    drivers = {"pipelined": run_fusion_sequence_pipelined, "scanned": run_fusion_sequence_scanned}
+    host, device, out = {n: [] for n in drivers}, {n: [] for n in drivers}, {}
+    for name in ("pipelined", "scanned", "scanned", "pipelined"):
+        stats = {}
+        reset_all_counts()
+        fmap, met = drivers[name](depths, k, map_capacity=POOL_CAPACITY, cfg=pool_config(),
+                                  device="cuda", stats=stats)
+        host[name].append(met.seconds_per_frame * 1e3)
+        device[name].append(stats["device_seconds_per_frame"] * 1e3)
+        out[name] = (fmap, met, stats["launches_per_frame"])
+    (fp, mp, lp), (fs, ms, ls) = out["pipelined"], out["scanned"]
+    same = (np.array_equal(np.stack(mp.poses), np.stack(ms.poses)) and mp.icp_iterations == ms.icp_iterations
+            and torch.equal(fp.data.view(torch.int32), fs.data.view(torch.int32)))
+    if not same:
+        raise AssertionError("pipelined and scanned drivers differ in poses, iterations or pool")
+    emit(phase="pipelined_path", entry="run_fusion_sequence_pipelined", frames=FRAMES,
+         map_capacity=POOL_CAPACITY, localize_stride=2, order=["pipelined", "scanned", "scanned", "pipelined"],
+         host_ms_per_frame=host, device_ms_per_frame=device, bit_identical_to_scanned=True,
+         icp_iterations=mp.icp_iterations, launches_per_replay=lp, launches_per_replay_scanned=ls,
+         phase_s=time.perf_counter() - t_phase, card=card)
+    return [{"phase": 29, "path": f"run_fusion_sequence_pipelined, {FRAMES} frames, launches a replay "
+                                  f"(x {FRAMES - 1} a run)", "launches": lp}]
+
+
 KERNEL_SOURCES = {
     "knn_full": "cilantro_tpu_torch/csrc/knn_kernels.cu",
     "knn_compact": "cilantro_tpu_torch/csrc/knn_kernels.cu",
@@ -2923,6 +3145,12 @@ def main() -> int:
          "launches": {k_: v for k_, v in ba_launches.items() if v}, "held_bit_exact": sorted(ba_entries)},
     ]
     print(json.dumps({"slam_paths": slam_paths}), flush=True)
+
+    # 28-29. Multi-stream fusion at the bench's B = 8 row, then the
+    # pipelined driver against the scanned one.
+    batched_paths, _ = batched_path(card)
+    batched_paths += pipelined_path(depths, k, card)
+    print(json.dumps({"batched_paths": batched_paths}), flush=True)
 
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]

@@ -77,18 +77,20 @@ def depth_to_points(
     pose: Optional[Transform] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Back-project a metric depth image: ``(points (H·W, 3), valid
-    (H·W,))`` in row-major pixel order; invalid points are 1e30."""
-    h, w = depth.shape
+    (H·W,))`` in row-major pixel order; invalid points are 1e30. Leading
+    dimensions of ``depth (..., H, W)`` are a batch of images."""
+    h, w = depth.shape[-2:]
+    batch = depth.shape[:-2]
     u = torch.arange(w, dtype=torch.float32, device=depth.device)[None, :]
     v = torch.arange(h, dtype=torch.float32, device=depth.device)[:, None]
     z = depth
     x = (u - intrinsics.cx) * z / scalar_like(intrinsics.fx, z)
     y = (v - intrinsics.cy) * z / scalar_like(intrinsics.fy, z)
-    pts = torch.stack([x, y, z], dim=-1).reshape(-1, 3)
-    valid = (z > 0).reshape(-1)
+    pts = torch.stack([x, y, z], dim=-1).reshape(batch + (-1, 3))
+    valid = (z > 0).reshape(batch + (-1,))
     if pose is not None:
         pts = transform_points(pose, pts)
-    pts = torch.where(valid[:, None], pts, 1e30)
+    pts = torch.where(valid[..., None], pts, 1e30)
     return pts, valid
 
 
@@ -100,14 +102,16 @@ def depth_to_points_normals(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Back-project + per-pixel normals from neighbouring-pixel cross
     products. Normals flip toward the camera; pixels next to a depth jump
-    above ``max_depth_jump`` and the (wrapped) image border are invalid."""
-    h, w = depth.shape
+    above ``max_depth_jump`` and the (wrapped) image border are invalid.
+    Leading dimensions of ``depth (..., H, W)`` are a batch of images."""
+    batch = depth.shape[:-2]
     pts_flat, valid_flat = depth_to_points(depth, intrinsics)
-    pts = pts_flat.reshape(h, w, 3)
-    valid = valid_flat.reshape(h, w)
+    pts = pts_flat.reshape(depth.shape + (3,))
+    valid = valid_flat.reshape(depth.shape)
 
-    du = torch.roll(pts, -1, dims=1) - torch.roll(pts, 1, dims=1)
-    dv = torch.roll(pts, -1, dims=0) - torch.roll(pts, 1, dims=0)
+    # Image rows are dimension -3 of pts and -2 of valid, columns the next.
+    du = torch.roll(pts, -1, dims=-2) - torch.roll(pts, 1, dims=-2)
+    dv = torch.roll(pts, -1, dims=-3) - torch.roll(pts, 1, dims=-3)
     nrm = torch.linalg.cross(dv, du, dim=-1)
     norm = torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
     nrm = nrm / torch.clamp(norm, min=1e-30)
@@ -117,22 +121,22 @@ def depth_to_points_normals(
 
     z = depth
     nvalid = valid.clone()
-    for shift, dim in ((-1, 1), (1, 1), (-1, 0), (1, 0)):
+    for shift, dim in ((-1, -1), (1, -1), (-1, -2), (1, -2)):
         nvalid &= torch.roll(valid, shift, dims=dim)
         nvalid &= ~(torch.abs(torch.roll(z, shift, dims=dim) - z) > max_depth_jump)
     # Border pixels wrap under roll: invalidate them.
-    nvalid[0, :] = False
-    nvalid[-1, :] = False
-    nvalid[:, 0] = False
-    nvalid[:, -1] = False
+    nvalid[..., 0, :] = False
+    nvalid[..., -1, :] = False
+    nvalid[..., :, 0] = False
+    nvalid[..., :, -1] = False
 
-    pts_o = pts.reshape(-1, 3)
-    nrm_o = torch.where(nvalid[..., None], nrm, 0.0).reshape(-1, 3)
+    pts_o = pts.reshape(batch + (-1, 3))
+    nrm_o = torch.where(nvalid[..., None], nrm, 0.0).reshape(batch + (-1, 3))
     if pose is not None:
         pts_o = transform_points(pose, pts_o)
         nrm_o = transform_normals(pose, nrm_o)
-    pts_o = torch.where(valid.reshape(-1)[:, None], pts_o, 1e30)
-    return pts_o, nrm_o, (valid & nvalid).reshape(-1)
+    pts_o = torch.where(valid.reshape(batch + (-1,))[..., None], pts_o, 1e30)
+    return pts_o, nrm_o, (valid & nvalid).reshape(batch + (-1,))
 
 
 def rgbd_to_cloud(
@@ -156,13 +160,13 @@ def rgbd_to_cloud(
 def project_points(
     points: torch.Tensor, intrinsics: CameraIntrinsics
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Camera-frame points → ``(u, v)`` pixel coordinates (int32, rounded
-    half to even) and depth. Out-of-range coordinates saturate to the int32
-    limits, as XLA converts."""
-    z = points[:, 2]
+    """Camera-frame points ``(..., 3)`` → ``(u, v)`` pixel coordinates
+    (int32, rounded half to even) and depth. Out-of-range coordinates
+    saturate to the int32 limits, as XLA converts."""
+    z = points[..., 2]
     safe_z = torch.where(z > 0, z, 1.0)
-    u = torch.round(points[:, 0] * intrinsics.fx / safe_z + intrinsics.cx)
-    v = torch.round(points[:, 1] * intrinsics.fy / safe_z + intrinsics.cy)
+    u = torch.round(points[..., 0] * intrinsics.fx / safe_z + intrinsics.cx)
+    v = torch.round(points[..., 1] * intrinsics.fy / safe_z + intrinsics.cy)
     return floor_int32(u), floor_int32(v), z
 
 
@@ -220,6 +224,61 @@ def _zbuffer_winner(
     widx = torch.where(has, (best_key & ((1 << idx_bits) - 1)) + best_group * group, -1)
     depth = torch.where(has, z[torch.where(has, widx, 0).long()], 0.0)
     return widx.reshape(h, w), depth.reshape(h, w)
+
+
+def _zbuffer_winner_batched(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    intrinsics: CameraIntrinsics,
+    h: int,
+    w: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_zbuffer_winner` for B streams in one scatter-min: ``points
+    (B, N, 3)`` camera-frame, ``valid (B, N)`` → ``(index (B, H, W) int32,
+    local to each stream's N rows, depth (B, H, W))``.
+
+    The B images are one ``(B·H·W,)`` pixel space and the rows one
+    ``(B·N,)`` stream, so everything of the key is taken over all streams
+    at once: ``idx_bits`` from ``B·N``, one ``z_max`` over every stream,
+    and groups of 2^20 global rows that may cross a stream boundary. A
+    winner's global row goes back to its stream's local index through the
+    stream its pixel belongs to."""
+    bsz, n, _ = points.shape
+    dev = points.device
+    u, v, z = project_points(points.reshape(bsz * n, 3), intrinsics)
+    ok = valid.reshape(-1) & (z > 0) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    total = bsz * n
+    npix = bsz * h * w
+    group = 1 << 20
+    n_groups = (total + group - 1) // group
+    idx_bits = min(max(total - 1, 1).bit_length(), 20)
+    levels = float(1 << (31 - idx_bits))
+    stream = torch.arange(total, dtype=torch.int32, device=dev) // n
+    tgt_all = torch.where(ok, stream * (h * w) + (v * w + u), npix).long()
+    z_max = torch.max(torch.where(ok, z, 0.0)) + 1e-6
+    scale = scalar_like(levels, z) / z_max
+    zq = torch.clamp(z * scale, 0, levels - 2).to(torch.int32)
+
+    best_key = best_group = None
+    for g in range(n_groups):
+        lo, hi = g * group, min((g + 1) * group, total)
+        local_idx = torch.arange(hi - lo, dtype=torch.int32, device=dev)
+        key = torch.where(ok[lo:hi], (zq[lo:hi] << idx_bits) | local_idx, _INVALID_KEY)
+        img = torch.full((npix + 1,), _INVALID_KEY, dtype=torch.int32, device=dev)
+        img = img.scatter_reduce_(0, tgt_all[lo:hi], key, "amin")[:npix]
+        if best_key is None:
+            best_key, best_group = img, torch.zeros_like(img)
+        else:
+            better = img < best_key
+            best_key = torch.where(better, img, best_key)
+            best_group = torch.where(better, g, best_group)
+
+    has = best_key != _INVALID_KEY
+    widx_g = torch.where(has, (best_key & ((1 << idx_bits) - 1)) + best_group * group, 0)
+    pix_stream = torch.arange(npix, dtype=torch.int32, device=dev) // (h * w)
+    widx = torch.where(has, widx_g - pix_stream * n, -1)
+    depth = torch.where(has, z[widx_g.long()], 0.0)
+    return widx.reshape(bsz, h, w), depth.reshape(bsz, h, w)
 
 
 def points_to_index_map(

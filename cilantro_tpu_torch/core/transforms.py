@@ -123,6 +123,14 @@ def transform_points_normals(
     return transform_points(tf, points), transform_normals(tf, normals, rigid=rigid)
 
 
+def per_stream(tf: Transform) -> Transform:
+    """A batch ``(B,)`` of transforms with a point axis added, ``(B, 1)``:
+    applied to points ``(B, N, D)``, stream ``b``'s transform moves stream
+    ``b``'s points (what the JAX package writes as a ``vmap`` over
+    streams)."""
+    return Transform(tf.linear[..., None, :, :], tf.translation[..., None, :])
+
+
 _JACOBI_SWEEPS = 4
 
 launch_counts: Dict[str, int] = {"project_to_rotation": 0}

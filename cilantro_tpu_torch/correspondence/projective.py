@@ -19,7 +19,7 @@ import torch
 
 from ..core.coalesced import coalesced_gather
 from ..core.rgbd import CameraIntrinsics, points_to_index_map, project_points
-from ..core.transforms import Transform
+from ..core.transforms import Transform, per_stream
 from ..neighbors.bruteforce import INVALID_DIST
 from .search import Correspondences
 
@@ -73,13 +73,30 @@ def find_projective_correspondences_packed(
 ):
     """One-gather projective matching against a packed target. Returns
     ``(s, dst_pts, dst_nrm, weights)``: the transformed source, the matched
-    target points and normals, and 0/1 weights."""
-    s = src_points if tf is None else tf.apply(src_points)
+    target points and normals, and 0/1 weights.
+
+    A batch of B streams (``src_points (B, N, 3)``, ``packed_target (B,
+    H·W, 8)``, ``tf`` a batch ``(B,)``) matches each stream against its own
+    target in one gather over the ``(B·H·W, 8)`` flat target: stream ``b``
+    reads row ``b·H·W + pixel``, and an out-of-image query reads its own
+    stream's row 0, as the JAX package's ``vmap`` of the plain gather
+    does."""
+    batched = src_points.dim() == 3
+    if tf is not None:
+        s = (per_stream(tf) if batched else tf).apply(src_points)
+    else:
+        s = src_points
     u, v, z = project_points(s, intrinsics)
     in_img = _in_image(u, v, z, h, w)
-    row = coalesced_gather(packed_target, torch.where(in_img, v * w + u, -1))
-    dst_pts, dst_nrm = row[:, 0:3], row[:, 3:6]
-    mask = in_img & (row[:, 6] > 0.5)
+    if batched:
+        bsz, hw, width = packed_target.shape
+        offs = torch.arange(bsz, dtype=torch.int32, device=s.device)[:, None] * hw
+        idx = (torch.where(in_img, v * w + u, 0) + offs).reshape(-1)
+        row = coalesced_gather(packed_target.reshape(bsz * hw, width), idx).reshape(bsz, -1, width)
+    else:
+        row = coalesced_gather(packed_target, torch.where(in_img, v * w + u, -1))
+    dst_pts, dst_nrm = row[..., 0:3], row[..., 3:6]
+    mask = in_img & (row[..., 6] > 0.5)
     if src_valid is not None:
         mask = mask & src_valid
     diff = dst_pts - s

@@ -22,7 +22,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..core.transforms import Transform, compose, identity, reproject_rigid
+from ..core.transforms import Transform, compose, identity, per_stream, reproject_rigid
 from ..correspondence.search import (
     Correspondences,
     find_nn_correspondences,
@@ -51,8 +51,10 @@ class ICPResult:
 
 
 def _delta_norm(delta: Transform) -> torch.Tensor:
+    """``‖ΔR − I‖ + ‖Δt‖`` of each transform of a batch."""
     eye = torch.eye(delta.dim, dtype=delta.linear.dtype, device=delta.linear.device)
-    return torch.linalg.norm(delta.linear - eye) + torch.linalg.norm(delta.translation)
+    return (torch.linalg.vector_norm(delta.linear - eye, dim=(-2, -1))
+            + torch.linalg.vector_norm(delta.translation, dim=-1))
 
 
 def icp(
@@ -351,16 +353,26 @@ def icp_projective_packed(
     last update norm at or above the tolerance), so ``iterations``,
     ``delta_norm`` and ``num_correspondences`` are those of the last kept
     iteration, counted on the device. With the same arithmetic the two
-    forms agree bit for bit."""
+    forms agree bit for bit.
+
+    A batch of B independent problems (``src_points (B, N, 3)``,
+    ``packed_target (B, H·W, 8)``, ``init`` a batch ``(B,)``) runs the
+    graph form with the condition held per problem: each problem's result
+    is its own loop's, as under the JAX package's ``vmap`` of the
+    ``while_loop``. An iteration does one gather and one rotation launch
+    for the whole batch."""
     from ..correspondence.projective import find_projective_correspondences_packed
 
     if metric not in ("point_to_point", "combined"):
         raise ValueError(f"unknown projective-ICP metric {metric!r}")
     if loop not in ("host", "graph"):
         raise ValueError(f"unknown loop form {loop!r}")
+    batch = src_points.shape[:-2]
+    if batch and loop == "host":
+        raise ValueError("a batch of problems runs the graph loop form")
     dev = src_points.device
     if init is None:
-        init = identity(src_points.shape[1], dtype=src_points.dtype, device=dev)
+        init = identity(src_points.shape[-1], batch_shape=batch, dtype=src_points.dtype, device=dev)
     use_symmetric = metric == "combined" and src_normals is not None and target_has_normals
 
     def body(tf: Transform):
@@ -370,7 +382,7 @@ def icp_projective_packed(
         )
         if use_symmetric:
             delta, _ = estimate_rigid_symmetric_metric(
-                s, dgt, tf.apply_normals(src_normals), ngt,
+                s, dgt, (per_stream(tf) if batch else tf).apply_normals(src_normals), ngt,
                 point_weights=w * point_weight, plane_weights=w * plane_weight,
                 max_iterations=max_gn_iterations,
             )
@@ -382,11 +394,12 @@ def icp_projective_packed(
             )
         else:
             delta, _ = estimate_rigid_point_to_point(s, dgt, w)
-        return reproject_rigid(compose(delta, tf)), _delta_norm(delta), torch.sum(w).to(torch.int32)
+        return (reproject_rigid(compose(delta, tf)), _delta_norm(delta),
+                torch.sum(w, -1).to(torch.int32))
 
     tf = init
-    dn = torch.full((), float("inf"), dtype=src_points.dtype, device=dev)
-    ncorr = torch.zeros((), dtype=torch.int32, device=dev)
+    dn = torch.full(batch, float("inf"), dtype=src_points.dtype, device=dev)
+    ncorr = torch.zeros(batch, dtype=torch.int32, device=dev)
     if loop == "host":
         it = 0
         while it < max_iterations and dn.item() >= convergence_tol:
@@ -394,13 +407,13 @@ def icp_projective_packed(
             it += 1
         iterations = torch.tensor(it, dtype=torch.int32, device=tf.linear.device)
     else:
-        iterations = torch.zeros((), dtype=torch.int32, device=dev)
+        iterations = torch.zeros(batch, dtype=torch.int32, device=dev)
         for _ in range(max_iterations):
             active = dn >= convergence_tol
             new_tf, new_dn, new_ncorr = body(tf)
             tf = Transform(
-                torch.where(active, new_tf.linear, tf.linear),
-                torch.where(active, new_tf.translation, tf.translation),
+                torch.where(active[..., None, None], new_tf.linear, tf.linear),
+                torch.where(active[..., None], new_tf.translation, tf.translation),
             )
             dn = torch.where(active, new_dn, dn)
             ncorr = torch.where(active, new_ncorr, ncorr)

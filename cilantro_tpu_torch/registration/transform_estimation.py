@@ -7,6 +7,12 @@ drops a row) and returns ``(Transform, valid)``. The JAX package's
 ``lax.while_loop`` of the GN estimators is a Python loop here; it reads the
 step norm back to the host (one sync) only when another iteration is
 allowed, so the default single iteration never syncs.
+
+The combined and symmetric metrics also take a batch of B independent
+problems (``(B, N, 3)`` arrays, ``(B, N)`` weights) and return a batch
+``(B,)`` of transforms: what the JAX package gets from a ``vmap``. A batch
+runs every GN iteration, each problem's estimate frozen once its own step
+norm falls below the tolerance, and never reads back to the host.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from ..core.transforms import (
     Transform,
     axis_angle_to_rotation,
     compose,
+    per_stream,
     project_to_rotation,
     skew3,
 )
@@ -27,18 +34,22 @@ _EPS = 1e-12
 
 
 def _weighted_means(src, dst, w):
+    if w.dim() > 1:  # a batch of problems: sums over the point axis
+        wsum = torch.clamp(torch.sum(w, -1), min=_EPS)[..., None]
+        return (torch.sum(w[..., None] * src, -2) / wsum, torch.sum(w[..., None] * dst, -2) / wsum,
+                wsum)
     wsum = torch.clamp(torch.sum(w), min=_EPS)
     mu_s = torch.einsum("n,ni->i", w, src) / wsum
     mu_d = torch.einsum("n,ni->i", w, dst) / wsum
     return mu_s, mu_d, wsum
 
 
-def _ones(n, like):
-    return torch.ones(n, dtype=like.dtype, device=like.device)
+def _ones(shape, like):
+    return torch.ones(shape, dtype=like.dtype, device=like.device)
 
 
-def _zeros(n, like):
-    return torch.zeros(n, dtype=like.dtype, device=like.device)
+def _zeros(shape, like):
+    return torch.zeros(shape, dtype=like.dtype, device=like.device)
 
 
 def _eye(d, like):
@@ -105,6 +116,8 @@ def _gn_accumulate_3d(src, dst, dst_normals, w_pp, w_pl, omega_points=None):
     ``J = [(p × n)ᵀ | nᵀ]``; point-to-point rows: residual ``s − d``,
     ``J = [−[p]× | I]``, accumulated blockwise. ``p`` is ``omega_points``
     (default ``src``)."""
+    if src.dim() > 2:
+        return _gn_accumulate_3d_batched(src, dst, dst_normals, w_pp, w_pl, omega_points)
     p = src if omega_points is None else omega_points
 
     sxn = torch.linalg.cross(p, dst_normals, dim=-1)
@@ -127,16 +140,46 @@ def _gn_accumulate_3d(src, dst, dst_normals, w_pp, w_pl, omega_points=None):
     return jtj + block, jtr + torch.cat([jtr_w, jtr_t])
 
 
+def _gn_accumulate_3d_batched(src, dst, dst_normals, w_pp, w_pl, omega_points=None):
+    """:func:`_gn_accumulate_3d` for a batch of problems (``(B, N, 3)``,
+    weights ``(B, N)``): the same sums, each a broadcast product summed over
+    the point axis. As batched GEMMs (``torch.einsum``'s route), cuBLAS
+    takes about 2 ms for each 6×6 sum over 8 × 76,800 rows on an H100."""
+    p = src if omega_points is None else omega_points
+
+    sxn = torch.linalg.cross(p, dst_normals, dim=-1)
+    j_pl = torch.cat([sxn, dst_normals], dim=-1)  # (B, N, 6)
+    r_pl = torch.sum(dst_normals * (src - dst), -1)
+    wj = w_pl[..., None] * j_pl
+    jtj = torch.sum(wj[..., :, None] * j_pl[..., None, :], -3)
+    jtr = -torch.sum(wj * r_pl[..., None], -2)
+
+    sk = skew3(p)  # (B, N, 3, 3); J_ω = −sk
+    r_pp = src - dst
+    wsk = w_pp[..., None, None] * sk
+    jtj_ww = torch.sum(wsk[..., :, :, None] * sk[..., :, None, :], (-4, -3))
+    jtj_wt = torch.sum(wsk, -3)
+    jtj_tt = torch.sum(w_pp, -1)[..., None, None] * _eye(3, src)
+    jtr_w = torch.sum(wsk * r_pp[..., None], (-3, -2))
+    jtr_t = -torch.sum(w_pp[..., None] * r_pp, -2)
+
+    block = torch.cat(
+        [torch.cat([jtj_ww, jtj_wt], dim=-1),
+         torch.cat([jtj_wt.transpose(-1, -2), jtj_tt], dim=-1)], dim=-2
+    )
+    return jtj + block, jtr + torch.cat([jtr_w, jtr_t], dim=-1)
+
+
 def _two_sided_update_3d(step):
     """GN update ``Ra · T(cos θ · t) · Ra`` with ``θ = atan‖ω‖``: the
-    rotation on both sides of the cos-scaled translation."""
-    omega, t = step[:3], step[3:]
-    na = torch.linalg.vector_norm(omega)
+    rotation on both sides of the cos-scaled translation. ``step (..., 6)``."""
+    omega, t = step[..., :3], step[..., 3:]
+    na = torch.linalg.vector_norm(omega, dim=-1)
     theta = torch.atan(na)
     scale = torch.where(na > _EPS, theta / torch.clamp(na, min=_EPS), 1.0)
-    half_r = axis_angle_to_rotation(omega * scale)
-    ta = torch.cos(theta) * t
-    zero = _zeros(3, step)
+    half_r = axis_angle_to_rotation(omega * scale[..., None])
+    ta = torch.cos(theta)[..., None] * t
+    zero = torch.zeros_like(t)
     return compose(
         Transform(half_r, zero),
         compose(Transform(_eye(3, step), ta), Transform(half_r, zero)),
@@ -146,17 +189,26 @@ def _two_sided_update_3d(step):
 def _gauss_newton(src_c, dst_c, w_pp, w_pl, normals_of, max_iterations, convergence_tol):
     """The GN loop shared by the combined and symmetric metrics, in centred
     coordinates: iterate while ``it < max_iterations`` and the last step
-    norm ≥ ``convergence_tol``."""
-    d = src_c.shape[1]
-    tf = Transform(_eye(d, src_c), _zeros(d, src_c))
+    norm ≥ ``convergence_tol``. A batch of problems runs every iteration
+    with each problem's transform frozen once its condition fails."""
+    d = src_c.shape[-1]
+    batch = src_c.shape[:-2]
+    tf = Transform(_eye(d, src_c).expand(batch + (d, d)), _zeros(batch + (d,), src_c))
+    active = torch.ones(batch, dtype=torch.bool, device=src_c.device) if batch else None
     for it in range(max_iterations):
-        s = tf.apply(src_c)
+        s = (per_stream(tf) if batch else tf).apply(src_c)
         # Rotation rows couple (d + s): the two-sided linearization.
         jtj, jtr = _gn_accumulate_3d(
             s, dst_c, normals_of(tf), w_pp, w_pl, omega_points=s + dst_c
         )
         step = _solve_normal_equations(jtj, jtr, 6)
-        tf = compose(_two_sided_update_3d(step), tf)
+        new_tf = compose(_two_sided_update_3d(step), tf)
+        if batch:
+            tf = Transform(torch.where(active[..., None, None], new_tf.linear, tf.linear),
+                           torch.where(active[..., None], new_tf.translation, tf.translation))
+            active = active & (torch.linalg.vector_norm(step, dim=-1) >= convergence_tol)
+            continue
+        tf = new_tf
         if it + 1 < max_iterations and not (
             torch.linalg.vector_norm(step).item() >= convergence_tol
         ):
@@ -165,7 +217,7 @@ def _gauss_newton(src_c, dst_c, w_pp, w_pl, normals_of, max_iterations, converge
 
 
 def _uncentre(tf, mu_s, mu_d):
-    """``T(μ_d) ∘ tf ∘ T(−μ_s)``."""
+    """``T(μ_d) ∘ tf ∘ T(−μ_s)``, ``μ`` of shape ``(..., D)``."""
     eye = _eye(tf.dim, mu_s)
     return compose(Transform(eye, mu_d), compose(tf, Transform(eye, -mu_s)))
 
@@ -183,17 +235,17 @@ def estimate_rigid_combined_metric(
     """Rigid combined point-to-point + point-to-plane Gauss-Newton (3-D):
     mean-centred coordinates, (d + s)-coupled rotation rows and the
     two-sided update."""
-    n, d = src.shape
+    d = src.shape[-1]
     if d != 3:
         raise ValueError(f"the port has the 3-D combined metric only, got D={d}")
-    w_pp = _zeros(n, src) if point_weights is None else point_weights
-    w_pl = _ones(n, src) if plane_weights is None else plane_weights
+    w_pp = _zeros(src.shape[:-1], src) if point_weights is None else point_weights
+    w_pl = _ones(src.shape[:-1], src) if plane_weights is None else plane_weights
     mu_s, mu_d, _ = _weighted_means(src, dst, w_pp + w_pl)
     tf = _gauss_newton(
-        src - mu_s, dst - mu_d, w_pp, w_pl, lambda tf: dst_normals,
+        src - mu_s[..., None, :], dst - mu_d[..., None, :], w_pp, w_pl, lambda tf: dst_normals,
         max_iterations, convergence_tol,
     )
-    valid = torch.sum((w_pp + w_pl) > 0) >= d
+    valid = torch.sum((w_pp + w_pl) > 0, -1) >= d
     return _uncentre(tf, mu_s, mu_d), valid
 
 
@@ -210,18 +262,19 @@ def estimate_rigid_symmetric_metric(
 ) -> Tuple[Transform, torch.Tensor]:
     """Symmetric-metric rigid Gauss-Newton (3-D): plane rows use the
     un-normalized ``n = n_dst + R n_src``, the update is two-sided."""
-    n, d = src.shape
+    d = src.shape[-1]
     if d != 3:
         raise ValueError(f"the port has the 3-D symmetric metric only, got D={d}")
-    w_pp = _zeros(n, src) if point_weights is None else point_weights
-    w_pl = _ones(n, src) if plane_weights is None else plane_weights
+    w_pp = _zeros(src.shape[:-1], src) if point_weights is None else point_weights
+    w_pl = _ones(src.shape[:-1], src) if plane_weights is None else plane_weights
     mu_s, mu_d, _ = _weighted_means(src, dst, w_pp + w_pl)
+    batched = src.dim() == 3
     tf = _gauss_newton(
-        src - mu_s, dst - mu_d, w_pp, w_pl,
-        lambda tf: dst_normals + tf.apply_normals(src_normals),
+        src - mu_s[..., None, :], dst - mu_d[..., None, :], w_pp, w_pl,
+        lambda tf: dst_normals + (per_stream(tf) if batched else tf).apply_normals(src_normals),
         max_iterations, convergence_tol,
     )
-    valid = torch.sum((w_pp + w_pl) > 0) >= d
+    valid = torch.sum((w_pp + w_pl) > 0, -1) >= d
     return _uncentre(tf, mu_s, mu_d), valid
 
 

@@ -1,8 +1,7 @@
 """Fusion, keyframe SLAM and its backend (port of ``cilantro_tpu.slam``).
 
 Re-exports what the JAX package's ``slam`` exports from the ported
-modules. Not ported yet: ``bundle_adjust_sharded`` (multi-device), batched
-fusion and the pipelined driver."""
+modules. Not ported yet: ``bundle_adjust_sharded`` (multi-device)."""
 
 from .fusion import (  # noqa: F401
     FusionConfig,
@@ -54,4 +53,17 @@ from .splat_fusion import (  # noqa: F401
     splat_fusion_step,
     splat_integrate,
     splat_localize,
+)
+from .pipeline import (  # noqa: F401
+    make_pipeline_mesh,
+    run_fusion_sequence_pipelined,
+)
+from .batched_fusion import (  # noqa: F401
+    BatchedFusionMetrics,
+    batched_fusion_step,
+    batched_integrate,
+    batched_seed_localize_target,
+    run_batched_fusion_sequences,
+    stack_maps,
+    unstack_maps,
 )

@@ -315,14 +315,16 @@ def apply_pool_update(
 
 def pack_camera_target(rows: torch.Tensor, ok: torch.Tensor, cam: Transform) -> torch.Tensor:
     """The ``(H·W, 8)`` camera-frame localize target ``[pts_cam | nrm_cam |
-    flag | 0]`` from world-frame pool rows, zero where ``~ok``."""
-    rows = torch.where(ok[:, None], rows, 0.0)
-    flag = ok.to(torch.float32)[:, None]
+    flag | 0]`` from world-frame pool rows, zero where ``~ok``. Leading
+    dimensions are a batch of streams (``cam`` then applies to each
+    stream's rows, see :func:`..core.transforms.per_stream`)."""
+    rows = torch.where(ok[..., None], rows, 0.0)
+    flag = ok.to(torch.float32)[..., None]
     packed = torch.cat(
-        [cam.apply(rows[:, 0:3]), cam.apply_normals(rows[:, 3:6]), flag, torch.zeros_like(flag)],
-        dim=1,
+        [cam.apply(rows[..., 0:3]), cam.apply_normals(rows[..., 3:6]), flag, torch.zeros_like(flag)],
+        dim=-1,
     )
-    return torch.where(ok[:, None], packed, 0.0)
+    return torch.where(ok[..., None], packed, 0.0)
 
 
 def _classify_and_build_rows(
@@ -342,9 +344,11 @@ def _classify_and_build_rows(
 ):
     """Per-pixel fuse / augment / carve classification and update rows.
     Returns ``(do_fuse, do_augment, do_carve, fuse_rows, aug_rows,
-    carve_row)``."""
+    carve_row)``. Leading dimensions of the per-pixel arrays are a batch of
+    streams (``pose`` and ``cam_from_world`` then apply to each stream's
+    pixels, see :func:`..core.transforms.per_stream`)."""
     dev = mrows.device
-    fd = frame_points[:, 2]
+    fd = frame_points[..., 2]
     f_ok = frame_valid & (fd > 0)
     # Interior pixels only (the reference loops over 1..h-2 × 1..w-2).
     pix = torch.arange(height * width, dtype=torch.int32, device=dev)
@@ -353,10 +357,10 @@ def _classify_and_build_rows(
 
     radial = radial_weights(height, width, intrinsics, cfg.radial_sigma_px, device=dev)
 
-    w = mrows.shape[1]
-    m_pts_w = mrows[:, 0:3]
-    m_nrm_w = mrows[:, 3:6]
-    c_old = mrows[:, _conf_col(w)]
+    w = mrows.shape[-1]
+    m_pts_w = mrows[..., 0:3]
+    m_nrm_w = mrows[..., 3:6]
+    c_old = mrows[..., _conf_col(w)]
     m_pts_cam = cam_from_world.apply(m_pts_w)
     m_nrm_cam = cam_from_world.apply_normals(m_nrm_w)
 
@@ -369,11 +373,11 @@ def _classify_and_build_rows(
     )
     # augment: the pixel and its 4 neighbours model-empty, or normals apart
     # by more than 105°.
-    m_img = m_ok.reshape(height, width)
+    m_img = m_ok.reshape(m_ok.shape[:-1] + (height, width))
     nb_occ = (
-        torch.roll(m_img, 1, 0) | torch.roll(m_img, -1, 0)
-        | torch.roll(m_img, 1, 1) | torch.roll(m_img, -1, 1)
-    ).reshape(-1)
+        torch.roll(m_img, 1, -2) | torch.roll(m_img, -1, -2)
+        | torch.roll(m_img, 1, -1) | torch.roll(m_img, -1, -1)
+    ).reshape(m_ok.shape)
     do_augment = (
         ~do_fuse & f_ok & ((~m_ok & ~nb_occ) | (m_ok & (ncos < cfg.augment_normal_cos)))
     )
@@ -391,22 +395,23 @@ def _classify_and_build_rows(
     # fresh row with confidence = radial; carve: a dead row (points at 1e30).
     pts_w = pose.apply(frame_points)
     nrm_w = pose.apply_normals(frame_normals)
-    npix = mrows.shape[0]
-    w_f = (radial / torch.clamp(radial + c_old, min=1e-30))[:, None]
+    pix_shape = mrows.shape[:-1]
+    w_f = (radial / torch.clamp(radial + c_old, min=1e-30))[..., None]
     fused_nrm = m_nrm_w * (1.0 - w_f) + nrm_w * w_f
     fused_nrm = fused_nrm / torch.clamp(
         torch.linalg.vector_norm(fused_nrm, dim=-1, keepdim=True), min=1e-30
     )
-    one = torch.ones((npix, 1), dtype=torch.float32, device=dev)
-    zeros_tail = torch.zeros((npix, w - _conf_col(w) - 2), dtype=torch.float32, device=dev)
+    one = torch.ones(pix_shape + (1,), dtype=torch.float32, device=dev)
+    zeros_tail = torch.zeros(pix_shape + (w - _conf_col(w) - 2,), dtype=torch.float32, device=dev)
     fuse_parts = [m_pts_w * (1.0 - w_f) + pts_w * w_f, fused_nrm]
     aug_parts = [pts_w, nrm_w]
     if w == _MAP_WIDTH:
         cols = frame_colors if frame_colors is not None else torch.zeros_like(frame_points)
-        fuse_parts.append(mrows[:, 6:9] * (1.0 - w_f) + cols * w_f)
+        fuse_parts.append(mrows[..., 6:9] * (1.0 - w_f) + cols * w_f)
         aug_parts.append(cols)
-    fuse_rows = torch.cat(fuse_parts + [c_old[:, None] + w_f, one, zeros_tail], dim=1)
-    aug_rows = torch.cat(aug_parts + [radial[:, None], one, zeros_tail], dim=1)
+    fuse_rows = torch.cat(fuse_parts + [c_old[..., None] + w_f, one, zeros_tail], dim=-1)
+    radial_col = radial[:, None].expand(pix_shape + (1,))
+    aug_rows = torch.cat(aug_parts + [radial_col, one, zeros_tail], dim=-1)
     carve_row = torch.zeros((w,), dtype=torch.float32, device=dev)
     carve_row[0:3] = 1e30
     return do_fuse, do_augment, do_carve, fuse_rows, aug_rows, carve_row

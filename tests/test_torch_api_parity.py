@@ -47,6 +47,8 @@ MODULES = [
     ("slam.keyframes", ["slam.keyframes"]),
     ("slam.checkpoint", ["slam.checkpoint"]),
     ("slam.slam", ["slam.slam"]),
+    ("slam.batched_fusion", ["slam.batched_fusion"]),
+    ("slam.pipeline", ["slam.pipeline"]),
 ]
 
 # Names a later slice ports (ROADMAP.md Queue 1): the 2-D helpers and the
@@ -148,22 +150,21 @@ def test_port_keeps_the_public_surface(jname, tnames):
 
 def test_slam_package_exports():
     """``cilantro_tpu_torch.slam`` re-exports what JAX's ``slam`` exports
-    from the ported modules (not the sharded BA, batched fusion or the
-    pipelined driver)."""
+    from the ported modules (not the sharded BA)."""
     import cilantro_tpu.slam as jslam
     import cilantro_tpu_torch.slam as tslam
 
-    not_ported = {"bundle_adjust_sharded", "make_pipeline_mesh", "run_fusion_sequence_pipelined",
-                  "BatchedFusionMetrics", "batched_fusion_step", "batched_integrate",
-                  "batched_seed_localize_target", "run_batched_fusion_sequences", "stack_maps",
-                  "unstack_maps"}
+    not_ported = {"bundle_adjust_sharded"}
     jnames = {n for n in dir(jslam) if not n.startswith("_") and callable(getattr(jslam, n))}
     tnames = {n for n in dir(tslam) if not n.startswith("_") and callable(getattr(tslam, n))}
     assert jnames - not_ported <= tnames, sorted(jnames - not_ported - tnames)
     for name in ("run_slam", "SlamConfig", "SlamResult", "integrate_sequence", "optimize_pose_graph",
                  "pose_error", "bundle_adjust", "Keyframe", "KeyframeGraph", "detect_loop_closures",
                  "relative_pose", "spawn_keyframe", "FusionCheckpoint", "save_checkpoint",
-                 "load_checkpoint", "synthetic_panorama_sequence"):
+                 "load_checkpoint", "synthetic_panorama_sequence", "make_pipeline_mesh",
+                 "run_fusion_sequence_pipelined", "BatchedFusionMetrics", "batched_fusion_step",
+                 "batched_integrate", "batched_seed_localize_target", "run_batched_fusion_sequences",
+                 "stack_maps", "unstack_maps"):
         assert name in tnames, name
 
 

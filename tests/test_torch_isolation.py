@@ -172,3 +172,24 @@ def test_slam_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert slam.load_checkpoint(path).fusion_map(device="cpu").data.device.type == "cpu"
     refined, _ = graph.optimize(device="cpu")
     assert len(refined) == 2
+
+
+def test_multi_stream_entry_points_raise_without_cuda(monkeypatch):
+    """Batched and pipelined fusion default to the card: without CUDA they
+    raise, and run on the CPU only when asked."""
+    from cilantro_tpu_torch import slam
+    from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    k = CameraIntrinsics.make(20.0, 20.0, 7.5, 5.5)
+    stacks = np.full((2, 2, 12, 16), 2.0, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        slam.run_batched_fusion_sequences(stacks, k)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        slam.run_fusion_sequence_pipelined(list(stacks[0]), k)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        slam.make_pipeline_mesh()
+    data, metrics = slam.run_batched_fusion_sequences(stacks, k, device="cpu")
+    assert data.device.type == "cpu" and metrics.poses.shape == (2, 2, 4, 4)
+    fmap, metrics = slam.run_fusion_sequence_pipelined(list(stacks[0]), k, device="cpu")
+    assert fmap.data.device.type == "cpu" and metrics.frames == 2
