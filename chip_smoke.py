@@ -217,6 +217,38 @@ in order; any failure raises and exits non-zero without the final line:
     poses, ICP iterations and pool bit for bit those of
     ``run_fusion_sequence_scanned``; host and device ms a frame of both in
     alternating turns.
+30. the JAX bench's estimation row (bench.py:220-252, 676-757, uncut) on
+    phase 23's 120,000-point height field, the stand-in for the bench's
+    ``p1``: ``ransac_plane`` with 1,024 hypotheses and a 1 cm gate, then on
+    a planted case (120,000 points, 60% on a known plane with 3 mm of
+    noise, 40% uniform in a 2 m cube; it fails unless the normal is within
+    0.5°, the offset within 5 mm and ≥ 95% of the planted inliers are
+    kept); ``ransac_transform`` on bench.py:228-242's 20,000
+    correspondences (0.2 rad about z, 30% outliers; 1,024 hypotheses, a
+    2 cm gate; < 1e-4 rad and < 1e-4 m, the rotation kernel launched);
+    ``kmeans(k=16)`` with its iterations, the bench's roofline figures and
+    its centroid update as the one-hot GEMM beside a broadcast sum;
+    ``fit_pca`` (eigenvalues within 1e-4 of float64 numpy, det = +1).
+    Each with host ms (best of 3 after a warm-up, ended by a synchronise),
+    the median ms between CUDA events around a run (wall time: the
+    estimators read back) and a profile (informational);
+31. the clustering path on the same cloud: ``knn_search(k=8)`` →
+    ``edge_mask_from_evaluator(max_distance=0.02)`` →
+    ``connected_components(min_size=100)`` (the compact kNN kernel must
+    run), capped ``mean_shift`` (2 cm, ``max_neighbors=16``: the compact
+    kNN kernel must run), ``spectral_clustering_knn`` on three planted
+    blobs of 10,000 points (k = 12, ``filter_degree=16``; the labels must
+    recover the blobs exactly, up to renaming) and
+    ``find_nn_correspondences_bidirectional`` on phase 6's pair (frames
+    1 → 0), ungated (the fused nn1 kernel) and with a 2 cm gate (the
+    pruned route); an nn1 kernel must run in each. Each with launches,
+    host and CUDA-event wall ms and a profile's idle share;
+32. the same entry points at 8,000 points and 128 hypotheses on the card
+    and on the CPU (plain versions), on draws made once on the card: the
+    best hypothesis and inlier counts within 0.1% of N, k-means with the
+    same iterations, centroids within 1e-4 and ≥ 99.9% of labels equal,
+    components with the same count and ≥ 99.9% of labels equal after
+    renaming, PCA within 1e-5.
 
 Before phase 23 one empty launch (``torch.cuda._sleep(0)``) is timed as in
 phase 2, beside the gather's ICP-stream time and bound (informational).
@@ -233,7 +265,13 @@ line before the kernels line gives each kernel's launches on phases 23-25,
 the ``slam_paths`` line on phases 26-27 (by stage; the scanned front end's
 wrappers run at its warm-up step and its capture, and the line gives its
 launches a replay beside them), the ``batched_paths`` line on phases
-28-29 (launches a replay, and those counted over the run).
+28-29 (launches a replay, and those counted over the run), the
+``estimation_paths`` line on phases 30-32 (by path; each kernel of phases
+30-31 held bit for bit against its plain version on the inputs of its
+last call on each path at each input shape and ``k``, and timed beside
+its bound: the rotation kernel on ``ransac_transform``'s 1,024 minimal
+fits and on its re-estimate, the compact kNN kernel on the components
+chain and on mean shift).
 
 Every line of standard output before the last two is one JSON object. The
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -686,17 +724,22 @@ PREVIOUS_NN1_MS = {
 }
 
 
-def once_ms(fn) -> float:
-    """Device ms of one run of ``fn`` (CUDA events), for plain versions too
-    slow to repeat 25 times."""
+def once_ms(fn, reps=1) -> float:
+    """Median ms between CUDA events around ``reps`` runs of ``fn`` after a
+    warm-up, for plain versions too slow to repeat 25 times: the device's
+    time where ``fn`` keeps it busy, its wall time where ``fn`` reads back
+    to the host."""
     fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def nn1_kernel_checks(nn, pair, coarse, entry_inputs):
@@ -1946,18 +1989,19 @@ def all_counts() -> dict:
 
 
 @contextlib.contextmanager
-def last_kernel_calls(kept: dict):
+def last_kernel_calls(kept: dict, wrappers=KERNEL_WRAPPERS, key=lambda name, args, kwargs: name):
     """A context in which every kernel wrapper keeps the arguments of its
-    last call in ``kept[kernel]``."""
+    last call in ``kept[key(kernel, args, kwargs)]`` (by default one call
+    a kernel)."""
     import importlib
     from unittest import mock
 
     with contextlib.ExitStack() as stack:
-        for name, module, attr in KERNEL_WRAPPERS:
+        for name, module, attr in wrappers:
             mod = importlib.import_module(module)
 
             def recording(*args, _real=getattr(mod, attr), _name=name, **kwargs):
-                kept[_name] = (args, kwargs)
+                kept[key(_name, args, kwargs)] = (args, kwargs)
                 return _real(*args, **kwargs)
 
             stack.enter_context(mock.patch.object(mod, attr, recording))
@@ -2928,6 +2972,384 @@ def pipelined_path(depths, k, card):
                                   f"(x {FRAMES - 1} a run)", "launches": lp}]
 
 
+# ---------------------------------------------------------------------------
+# Estimation and clustering (phases 30-32).
+# ---------------------------------------------------------------------------
+
+EST_HYPOTHESES, EST_PLANE_GATE, EST_TF_GATE = 1024, 0.01, 0.02  # bench.py:220-252
+EST_TF_POINTS, EST_KMEANS_K = 20_000, 16
+PLANTED_NORMAL = (0.2, -0.3, 0.9)  # the planted plane n·x + d = 0 (n normalised)
+PLANTED_OFFSET, PLANTED_NOISE, PLANTED_SHARE = -0.4, 0.003, 0.6
+MEAN_SHIFT_RADIUS, MEAN_SHIFT_CAP = 0.02, 16
+BLOB_POINTS, BLOB_K, BLOB_SIGMA2, BLOB_FILTER = 10_000, 12, 2.0, 16  # tests/test_spatial_utils.py:334
+BIDIR_GATE = 0.02 ** 2  # a 2 cm gate, squared: the pruned route
+SMALL_POINTS, SMALL_HYPOTHESES = 8_000, 128
+# The kernel wrappers of the estimation paths: the chip-wide list and the
+# estimators' rotation kernel, which transform_estimation imports by name.
+ESTIMATION_WRAPPERS = KERNEL_WRAPPERS + (
+    ("project_to_rotation", "cilantro_tpu_torch.registration.transform_estimation", "project_to_rotation"),
+)
+ESTIMATION_KERNELS = ("nn1_fused", "nn1_masked", "nn1_compact", "knn_full", "knn_compact", "project_to_rotation")
+
+
+def profile_info(fn, times) -> dict:
+    """``profile_once`` of one run of ``fn`` beside its host ms;
+    informational: a failed profile is reported, not raised."""
+    try:
+        return profile_once(fn, times["host_ms"])
+    except Exception as e:  # informational: report and go on
+        return {"device_busy": "not measured", "error": f"{type(e).__name__}: {e}"}
+
+
+def timed(fn, reps=3) -> dict:
+    """Host ms (best of ``reps`` after a warm-up, each ended by a
+    synchronise) and the median ms between CUDA events around ``reps`` runs
+    of ``fn``: wall time, since the estimators' host loops read back (the
+    profile's ``device_busy`` is the device's share)."""
+    return {"host_ms": best_host_ms(fn, reps), "event_wall_ms": once_ms(fn, reps), "reps": reps}
+
+
+def estimation_cloud(dev):
+    """The 120,000-point stand-in for the bench's ``p1`` (phase 23's height
+    field, a 0.72 m patch)."""
+    return torch.as_tensor(warp_inputs()[0], device=dev)
+
+
+def planted_plane(n, seed=1):
+    """``n`` points, ``PLANTED_SHARE`` of them on the planted plane with
+    ``PLANTED_NOISE`` m of normal noise, the rest uniform in a 2 m cube."""
+    rng = np.random.default_rng(seed)
+    normal = np.asarray(PLANTED_NORMAL) / np.linalg.norm(PLANTED_NORMAL)
+    u = np.cross(normal, [1.0, 0.0, 0.0])
+    u /= np.linalg.norm(u)
+    v = np.cross(normal, u)
+    m = int(PLANTED_SHARE * n)
+    ab = rng.uniform(-1, 1, (m, 2))
+    on = -PLANTED_OFFSET * normal + ab[:, :1] * u + ab[:, 1:] * v + rng.normal(0, PLANTED_NOISE, (m, 1)) * normal
+    off = rng.uniform(-1, 1, (n - m, 3))
+    return np.concatenate([on, off]).astype(np.float32), normal, m
+
+
+def bench_transform_case(p1, n=None):
+    """bench.py:228-242: the first ``n`` (20,000) points, 0.2 rad about z
+    and (0.05, -0.02, 0.03), 30% of the targets replaced by uniform
+    [-2, 2]³."""
+    rng = np.random.default_rng(0)
+    n = EST_TF_POINTS if n is None else n
+    sub = np.asarray(p1[:n], np.float32)
+    ang = 0.2
+    rmat = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1]], np.float32)
+    t = np.float32([0.05, -0.02, 0.03])
+    dst = sub @ rmat.T + t
+    out = rng.random(n) < 0.3
+    dst[out] = rng.uniform(-2, 2, (int(out.sum()), 3)).astype(np.float32)
+    return sub, dst, rmat, t
+
+
+def call_shape(name, args, kwargs):
+    """A kernel call's key in phases 30-31: the kernel, its first input's
+    shape and its ``k``."""
+    return name, tuple(args[0].shape), kwargs.get("k")
+
+
+def counted(fn, kept, label):
+    """Run ``fn`` with every kernel count at 0 and the wrappers keeping
+    the last call of each kernel at each :func:`call_shape` in
+    ``kept[(label, kernel, shape, k)]``; return its result and the
+    launches."""
+    reset_all_counts()
+    calls = {}
+    with last_kernel_calls(calls, ESTIMATION_WRAPPERS, key=call_shape):
+        out = fn()
+        torch.cuda.synchronize()
+    kept.update({(label,) + key: call for key, call in calls.items()})
+    return out, {name: v for name, v in all_counts().items() if v}
+
+
+def estimation_row(card):
+    """Phase 30: the bench's estimation row at its size."""
+    import importlib
+
+    from cilantro_tpu_torch.core.pca import fit_pca
+    from cilantro_tpu_torch.model_estimation import ransac_plane, ransac_transform
+
+    km = importlib.import_module("cilantro_tpu_torch.clustering.kmeans")  # the package's `kmeans` is the function
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    pts = estimation_cloud(dev)
+    gen = torch.Generator(device=dev)
+    kept, paths = {}, []
+
+    def plane_on(p):
+        return lambda: ransac_plane(gen.manual_seed(0), p, EST_PLANE_GATE, num_hypotheses=EST_HYPOTHESES)
+
+    label = "ransac_plane, 120,000 points, 1,024 hypotheses"
+    (plane, res), launches = counted(plane_on(pts), kept, label)
+    t_plane = timed(plane_on(pts))
+    emit(phase="estimation_ransac_plane", points=int(pts.shape[0]), hypotheses=EST_HYPOTHESES,
+         gate_m=EST_PLANE_GATE, inliers=int(res.num_inliers), normal=plane.normal.tolist(),
+         offset=float(plane.offset), launches=launches, profile=profile_info(plane_on(pts), t_plane),
+         **t_plane, card=card)
+    paths.append({"phase": 30, "path": label, "launches": launches})
+
+    planted, normal, m = planted_plane(pts.shape[0])
+    (plane, res), _ = counted(plane_on(torch.as_tensor(planted, device=dev)), {}, "planted plane")
+    got = plane.normal.cpu().numpy().astype(np.float64)
+    sign = float(np.sign(got @ normal))
+    angle_deg = float(np.degrees(np.arccos(min(1.0, abs(got @ normal)))))
+    offset_err = abs(float(plane.offset) * sign - PLANTED_OFFSET)
+    kept_share = float(res.inlier_mask[:m].float().mean())
+    emit(phase="estimation_planted_plane", points=int(planted.shape[0]), planted=m, noise_m=PLANTED_NOISE,
+         normal_err_deg=angle_deg, offset_err_m=offset_err, planted_inliers_kept=kept_share,
+         inliers=int(res.num_inliers), card=card)
+    if not (angle_deg < 0.5 and offset_err < 5e-3 and kept_share >= 0.95):
+        raise AssertionError(f"planted plane: {angle_deg}° / {offset_err} m / {kept_share} kept "
+                             "(bounds 0.5°, 5 mm, 95%)")
+
+    sub, dst, rmat, t = bench_transform_case(pts.cpu().numpy())
+    sub_t, dst_t = torch.as_tensor(sub, device=dev), torch.as_tensor(dst, device=dev)
+
+    def tf_run():
+        return ransac_transform(gen.manual_seed(0), sub_t, dst_t, EST_TF_GATE, num_hypotheses=EST_HYPOTHESES)
+
+    label = "ransac_transform, 20,000 correspondences, 1,024 hypotheses"
+    (tf, res), launches = counted(tf_run, kept, label)
+    rot_err = rot_angle(tf.linear.cpu().numpy(), rmat)
+    t_err = float(np.abs(tf.translation.cpu().numpy() - t).max())
+    t_tf = timed(tf_run)
+    emit(phase="estimation_ransac_transform", correspondences=EST_TF_POINTS, outliers=0.3,
+         hypotheses=EST_HYPOTHESES, gate_m=EST_TF_GATE, inliers=int(res.num_inliers), rotation_err_rad=rot_err,
+         translation_err_m=t_err, launches=launches, profile=profile_info(tf_run, t_tf), **t_tf, card=card)
+    if not (rot_err < 1e-4 and t_err < 1e-4):
+        raise AssertionError(f"ransac_transform: {rot_err} rad / {t_err} m (bounds 1e-4)")
+    if not launches.get("project_to_rotation"):
+        raise AssertionError(f"ransac_transform launched no rotation kernel: {launches}")
+    paths.append({"phase": 30, "path": label, "launches": launches})
+
+    def kmeans_run():
+        return km.kmeans(gen.manual_seed(0), pts, EST_KMEANS_K)
+
+    label = "kmeans, k = 16, 120,000 points"
+    result, launches = counted(kmeans_run, kept, label)
+    iters = int(result.iterations)
+    n = int(pts.shape[0])
+    t_km = timed(kmeans_run)
+    flops, nbytes = 2.0 * n * EST_KMEANS_K * 3 * iters, float(n) * 3 * 4 * iters
+    # The centroid update, two forms on the final labels: the one-hot GEMM
+    # the module uses (as the JAX package) and a broadcast product summed
+    # over the points.
+    onehot = (result.labels[:, None] == torch.arange(EST_KMEANS_K, device=dev)[None, :]).float()
+    forms = {"onehot_gemm": device_ms(lambda: torch.einsum("nk,nd->kd", onehot, pts)),
+             "broadcast_sum": device_ms(lambda: torch.sum(onehot[:, :, None] * pts[:, None, :], dim=0))}
+    emit(phase="estimation_kmeans", points=n, k=EST_KMEANS_K, init="k-means++", iterations=iters,
+         converged=bool(result.converged), flops=flops, bytes=nbytes,
+         gflops_per_s=flops / (t_km["host_ms"] * 1e6), gbytes_per_s=nbytes / (t_km["host_ms"] * 1e6),
+         update_ms=forms, launches=launches, profile=profile_info(kmeans_run, t_km), **t_km, card=card)
+    paths.append({"phase": 30, "path": label, "launches": launches})
+
+    pca = fit_pca(pts)
+    ref = np.linalg.eigh(np.cov(pts.cpu().numpy().astype(np.float64).T))[0][::-1]
+    rel = float(np.max(np.abs(pca.eigenvalues.cpu().numpy() - ref) / ref))
+    det = float(torch.linalg.det(pca.eigenvectors.double()))
+    t_pca = timed(lambda: fit_pca(pts))
+    emit(phase="estimation_pca", points=n, eigenvalues=pca.eigenvalues.tolist(), float64_eigenvalues=ref.tolist(),
+         max_rel_err=rel, det=det, profile=profile_info(lambda: fit_pca(pts), t_pca), **t_pca, card=card)
+    if not (rel < 1e-4 and abs(det - 1.0) < 1e-5):
+        raise AssertionError(f"fit_pca: eigenvalues {rel} from float64 (bound 1e-4), det {det}")
+    emit(phase="estimation_row", phase_s=time.perf_counter() - t_phase)
+    return paths, kept
+
+
+def blobs(n_per, k=3, sep=8.0, seed=0):
+    """tests/test_spatial_utils.py's planted blobs (σ = 0.2, ``sep`` apart)."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.standard_normal((n_per, 3)) * 0.2 + sep * i for i in range(k)]).astype(np.float32)
+
+
+def same_partition(a, b) -> bool:
+    a, b = np.asarray(a).tolist(), np.asarray(b).tolist()
+    return len(set(zip(a, b))) == len(set(a)) == len(set(b))
+
+
+def clustering_path(pair, card):
+    """Phase 31: the clustering chain, capped mean shift, spectral
+    clustering on the kNN graph and bidirectional correspondences."""
+    from cilantro_tpu_torch.clustering import (
+        connected_components, edge_mask_from_evaluator, mean_shift, spectral_clustering_knn,
+    )
+    from cilantro_tpu_torch.correspondence.search import find_nn_correspondences_bidirectional
+    from cilantro_tpu_torch.neighbors import knn_search
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    pts = estimation_cloud(dev)
+    kept, paths = {}, []
+
+    def chain():
+        nb = knn_search(pts, pts, 8, exclude_self=True)
+        return connected_components(nb, edge_mask=edge_mask_from_evaluator(nb, pts, max_distance=0.02),
+                                    min_size=100)
+
+    def record(name, label, run, extra, reps=3):
+        out, launches = counted(run, kept, label)
+        times = timed(run, reps)
+        busy = profile_info(run, times)
+        emit(phase=f"clustering_{name}", launches=launches, profile=busy, **times, **extra(out), card=card)
+        paths.append({"phase": 31, "path": label, "launches": launches})
+        return out, launches
+
+    _, launches = record("components", "knn_search(k=8) + edge mask + connected_components, 120,000 points",
+                         chain, lambda cc: dict(points=int(pts.shape[0]), components=int(cc.num_components),
+                                                largest=int(cc.sizes[0])))
+    if not launches.get("knn_compact"):
+        raise AssertionError(f"the components chain launched no compact kNN kernel: {launches}")
+
+    _, launches = record(
+        "mean_shift", f"mean_shift(max_neighbors={MEAN_SHIFT_CAP}), 120,000 points",
+        lambda: mean_shift(pts, MEAN_SHIFT_RADIUS, max_neighbors=MEAN_SHIFT_CAP),
+        lambda r: dict(radius_m=MEAN_SHIFT_RADIUS, iterations=int(r.iterations), clusters=int(r.num_clusters),
+                       overflowed=bool(r.overflowed)), reps=1)
+    if not launches.get("knn_compact"):
+        raise AssertionError(f"capped mean shift launched no compact kNN kernel: {launches}")
+
+    blob_pts = torch.as_tensor(blobs(BLOB_POINTS), device=dev)
+
+    def spectral():
+        nb = knn_search(blob_pts, blob_pts, BLOB_K, exclude_self=True)
+        w = torch.where(nb.mask, torch.exp(-nb.distances / BLOB_SIGMA2), 0.0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return spectral_clustering_knn(gen, nb.indices, w, nb.mask, 3, filter_degree=BLOB_FILTER)
+
+    res, _ = record("spectral", f"spectral_clustering_knn, 3 x {BLOB_POINTS:,} points, k = {BLOB_K}", spectral,
+                    lambda r: dict(points=3 * BLOB_POINTS, eigenvalues=r.eigenvalues.tolist(),
+                                   clusters=len(set(r.labels.tolist()))), reps=1)
+    truth = np.repeat(np.arange(3), BLOB_POINTS)
+    if not same_partition(res.labels.cpu().numpy(), truth):
+        raise AssertionError("spectral_clustering_knn did not recover the three blobs exactly")
+
+    (sp, _, sv), (dp, _, dv) = pair
+    for label, gate in (("fused route, no gate", None), ("pruned route, 2 cm gate", BIDIR_GATE)):
+        corr, launches = record(
+            "bidirectional" if gate is None else "bidirectional_gated",
+            f"find_nn_correspondences_bidirectional, 640x480 frames 1 -> 0, {label}",
+            lambda gate=gate: find_nn_correspondences_bidirectional(sp, dp, src_valid=sv, dst_valid=dv,
+                                                                    max_distance=gate),
+            lambda c: dict(correspondences=int(c.count()), src_valid=int(sv.sum())))
+        if not any(launches.get(k) for k in ("nn1_fused", "nn1_masked", "nn1_compact")):
+            raise AssertionError(f"bidirectional search ({label}) launched no nn1 kernel: {launches}")
+    emit(phase="clustering_path", phase_s=time.perf_counter() - t_phase)
+    return paths, kept
+
+
+def estimation_card_vs_cpu(card):
+    """Phase 32: the same entry points on the CPU (plain versions) at
+    smaller sizes, on draws made once on the card."""
+    import importlib
+
+    from cilantro_tpu_torch.clustering import connected_components, edge_mask_from_evaluator
+    from cilantro_tpu_torch.core.pca import fit_pca
+    from cilantro_tpu_torch.model_estimation import ransac as rs
+    from cilantro_tpu_torch.neighbors import knn_search
+
+    km = importlib.import_module("cilantro_tpu_torch.clustering.kmeans")
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    pts = estimation_cloud(dev)[:: WARP_POINTS // SMALL_POINTS][:SMALL_POINTS].contiguous()
+    n = int(pts.shape[0])
+    planted = torch.as_tensor(planted_plane(n)[0], device=dev)
+    sub, dst, _, _ = bench_transform_case(warp_inputs()[0], SMALL_POINTS)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    scores = torch.rand((SMALL_HYPOTHESES, n), generator=gen, device=dev)
+    gumbel = km._gumbel_from_uniform(torch.rand((EST_KMEANS_K, n), generator=gen, device=dev))
+    sides, launches = {}, {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        def on(x, where=where):
+            return torch.as_tensor(x).to(where)
+
+        def run(on=on):
+            plane = rs._ransac_plane_from_scores(on(scores), on(planted), EST_PLANE_GATE)
+            tf = rs._ransac_transform_from_scores(on(scores), on(sub), on(dst), EST_TF_GATE)
+            kmr = km._kmeans_from_draws(on(gumbel), on(pts), EST_KMEANS_K)
+            nb = knn_search(on(pts), on(pts), 8, exclude_self=True)
+            cc = connected_components(nb, edge_mask=edge_mask_from_evaluator(nb, on(pts), max_distance=0.02))
+            return plane, tf, kmr, cc, fit_pca(on(pts))
+
+        if side == "card":
+            sides[side], launches = counted(run, {}, "card vs CPU")
+        else:
+            sides[side] = run()
+    (pg, tg_, kg, cg_, ag), (pc, tc_, kc, cc_, ac) = sides["card"], sides["cpu"]
+    tol = 1e-3 * n
+    checks = {}
+    for name, (g, c) in (("plane", (pg[1], pc[1])), ("transform", (tg_[1], tc_[1]))):
+        hg, hc = g.hypothesis_inliers.cpu(), c.hypothesis_inliers
+        checks[name] = dict(best_card=int(torch.argmax(hg)), best_cpu=int(torch.argmax(hc)),
+                            max_count_diff=int((hg - hc).abs().max()),
+                            inliers_card=int(g.num_inliers), inliers_cpu=int(c.num_inliers))
+        c_ = checks[name]
+        if not (c_["best_card"] == c_["best_cpu"] and c_["max_count_diff"] <= tol
+                and abs(c_["inliers_card"] - c_["inliers_cpu"]) <= tol):
+            raise AssertionError(f"card vs CPU {name}: {c_} (within {tol} points)")
+    lab_same = float((kg.labels.cpu() == kc.labels).float().mean())
+    cen_diff = float((kg.centroids.cpu() - kc.centroids).abs().max())
+    checks["kmeans"] = dict(iterations_card=int(kg.iterations), iterations_cpu=int(kc.iterations),
+                            max_centroid_diff=cen_diff, labels_equal=lab_same)
+    if not (int(kg.iterations) == int(kc.iterations) and cen_diff <= 1e-4 and lab_same >= 0.999):
+        raise AssertionError(f"card vs CPU k-means: {checks['kmeans']}")
+    gl, cl = cg_.labels.cpu().numpy(), cc_.labels.numpy()
+    pairs = {}
+    for a, b in zip(gl.tolist(), cl.tolist()):
+        pairs[(a, b)] = pairs.get((a, b), 0) + 1
+    best = {}
+    for (a, b), c in pairs.items():  # each card label's most common CPU label
+        best[a] = max(best.get(a, (0, None)), (c, b))
+    renamed_same = sum(c for c, _ in best.values()) / len(gl)
+    checks["components"] = dict(count_card=int(cg_.num_components), count_cpu=int(cc_.num_components),
+                                labels_equal_after_renaming=renamed_same)
+    if not (int(cg_.num_components) == int(cc_.num_components) and renamed_same >= 0.999):
+        raise AssertionError(f"card vs CPU components: {checks['components']}")
+    pca_diff = max(float((ag.eigenvalues.cpu() - ac.eigenvalues).abs().max()),
+                   float((ag.mean.cpu() - ac.mean).abs().max()),
+                   float((ag.eigenvectors.cpu().abs() - ac.eigenvectors.abs()).abs().max()))
+    checks["pca"] = dict(max_diff=pca_diff)
+    if not pca_diff <= 1e-5:
+        raise AssertionError(f"card vs CPU PCA: {pca_diff} (bound 1e-5)")
+    emit(phase="estimation_card_vs_cpu", points=n, hypotheses=SMALL_HYPOTHESES, launches=launches,
+         phase_s=time.perf_counter() - t_phase, card=card, **checks)
+    return [{"phase": 32, "path": f"card side of the card-vs-CPU run, {n:,} points", "launches": launches}]
+
+
+def estimation_paths(pair, card):
+    """Phases 30-32 and each kernel of phases 30-31 held bit for bit against
+    its plain version on the inputs of its last call on each path at each
+    input shape (:func:`call_shape`), timed beside its bound (the warp's
+    checks)."""
+    paths, kept = estimation_row(card)
+    more, kept_31 = clustering_path(pair, card)
+    paths += more
+    kept.update(kept_31)
+    path_launches = {p["path"]: p["launches"] for p in paths}
+    launches, held = {}, []
+    for p in paths:
+        for name, v in p["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+    for (label, name, shape, k), call in kept.items():
+        where = f"{label}: last call at input shape {list(shape)}" + ("" if k is None else f", k = {k}")
+        entries = warp_kernel_checks({name: call}, path_launches[label], where,
+                                     phase="estimation_kernel_vs_plain")
+        held += [dict(kernel=name, path=label, input_shape=list(shape), k=k,
+                      **{f: e[f] for f in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")}) for e in entries.values()]
+    paths += estimation_card_vs_cpu(card)
+    paths.append({"phase": "30-31", "path": "every kernel of phases 30-31, held bit for bit on its last call on "
+                                            "each path at each input shape",
+                  "launches": {k: v for k, v in launches.items() if k in ESTIMATION_KERNELS},
+                  "held_bit_exact": held})
+    return paths, held
+
+
 KERNEL_SOURCES = {
     "knn_full": "cilantro_tpu_torch/csrc/knn_kernels.cu",
     "knn_compact": "cilantro_tpu_torch/csrc/knn_kernels.cu",
@@ -3151,6 +3573,11 @@ def main() -> int:
     batched_paths, _ = batched_path(card)
     batched_paths += pipelined_path(depths, k, card)
     print(json.dumps({"batched_paths": batched_paths}), flush=True)
+
+    # 30-32. Estimation and clustering: the bench's estimation row, the
+    # clustering path, then card against CPU.
+    est_paths, _ = estimation_paths(pair, card)
+    print(json.dumps({"estimation_paths": est_paths}), flush=True)
 
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]

@@ -13,20 +13,22 @@ The wrapper runs the plain version only for CPU tensors; for a CUDA tensor
 it launches the kernel or raises.
 
 Ported so far (splat fusion, rigid ICP, pool fusion, neighbour engines
-and normals, the scanned drivers, the non-rigid warp, the SLAM backend):
+and normals, the scanned drivers, the non-rigid warp, the SLAM backend,
+multi-stream fusion, estimation and clustering):
 
 core            ``Transform`` and its ops (the closest rotation through a
                 kernel, ``csrc/rotation_kernels.cu``), ``CameraIntrinsics``, depth →
                 points (+normals), the z-buffer, ``PointCloud`` (with
                 kNN / radius normals), grids, covariance and MCD,
-                normal estimation, the wide-row gather kernel
-                (``core/coalesced.py``)
+                normal estimation, PCA, the pair evaluators, the
+                wide-row gather kernel (``core/coalesced.py``)
 neighbors       exact 1-NN and the nn1 kernels (``neighbors/fused_nn.py``),
                 exact kNN and radius search with the two kNN kernels
                 (``neighbors/fused_knn.py``), the grid radius search and
                 the ``knn_search`` / ``radius_search`` API
-correspondence  nearest-neighbour and projective correspondences
-registration    the 3-D estimators, ``icp``, ``icp_multires``,
+correspondence  nearest-neighbour (one way, both ways, oracle, the
+                combined-metric combiner) and projective correspondences
+registration    the 2-D and 3-D estimators, ``icp``, ``icp_multires``,
                 ``icp_projective``; the non-rigid warp fields on an
                 embedded deformation graph or per point, single and
                 B-stream (``warp_field.py``, ``warp_field_batched.py``)
@@ -39,6 +41,12 @@ slam            the splat kernels (``slam/splat.py``), splat fusion
                 graph and replayed (``slam/scan.py``), and keyframe SLAM:
                 keyframes and loop closures, the pose graph, single-device
                 Schur bundle adjustment and ``run_slam``
+model_estimation  batched RANSAC: planes and rigid / affine transforms
+clustering      k-means, mean shift, connected components, spectral
+                clustering (dense and on a kNN graph, with LOBPCG)
+spatial         convex polytopes and space regions (hulls on the host,
+                containment on the device)
+utils           nearest-neighbour graph matrices and classical MDS
 interop         build port state (clouds, maps, deformation graphs,
                 keyframe graphs, BA problems) from the JAX package's
                 leaves (numpy)
@@ -67,3 +75,15 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run the plain PyTorch versions"
         )
     return dev
+
+
+def on_device(x, device=None, dtype=None):
+    """``x`` as a tensor for an entry point. A tensor keeps its own device
+    unless ``device`` names another; anything else (numpy, lists) goes to
+    ``device``, the card by default. ``dtype`` converts; None stays None."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        dev = x.device if device is None else resolve_device(device)
+        return x.to(device=dev, dtype=dtype)
+    return torch.as_tensor(x, dtype=dtype, device=resolve_device("cuda" if device is None else device))

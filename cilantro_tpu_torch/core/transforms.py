@@ -275,6 +275,13 @@ def skew3(v: torch.Tensor) -> torch.Tensor:
     return _cross_matrix(v[..., 0], v[..., 1], v[..., 2])
 
 
+def rot2d(theta: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """2-D rotations ``(..., 2, 2)`` of the angles ``theta (...)``."""
+    theta = torch.as_tensor(theta)
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)], -2).to(dtype)
+
+
 def axis_angle_to_rotation(omega: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula, ``omega`` ``(..., 3)``. Safe at ``omega == 0``."""
     theta = torch.linalg.vector_norm(omega, dim=-1, keepdim=True)
@@ -298,3 +305,9 @@ def gn_update_3d(step: torch.Tensor) -> Transform:
         torch.ones_like(theta),
     )
     return Transform(axis_angle_to_rotation(omega * scale), t)
+
+
+def gn_update_2d(step: torch.Tensor) -> Transform:
+    """GN step ``[theta; t]`` (3,) → rigid 2-D transform."""
+    theta, t = step[..., 0], step[..., 1:]
+    return Transform(rot2d(theta, dtype=step.dtype), t)

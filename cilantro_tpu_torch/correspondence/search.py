@@ -1,10 +1,12 @@
-"""Nearest-neighbour correspondence search (port of the unidirectional part
-of ``cilantro_tpu/correspondence/search.py``).
+"""Nearest-neighbour correspondence search (port of
+``cilantro_tpu/correspondence/search.py``).
 
 A :class:`Correspondences` is sized by the query cloud: partner index,
 squared feature distance, weight and mask per query; filtering clears mask
-bits and shapes never change. The bidirectional, oracle and
-combined-metric combiner functions wait for a later slice.
+bits and shapes never change. Besides one-way matching: both ways (the
+intersection or the union on fixed shapes), fixed user correspondences
+re-scored under a transform, and the combiner that stacks a point-metric
+and a plane-metric set for the GN estimators.
 """
 
 from __future__ import annotations
@@ -135,3 +137,105 @@ def find_nn_correspondences(
         weights=mask.to(query_features.dtype),
         mask=mask,
     )
+
+
+def find_nn_correspondences_bidirectional(
+    src_features: torch.Tensor,
+    dst_features: torch.Tensor,
+    *,
+    src_valid: Optional[torch.Tensor] = None,
+    dst_valid: Optional[torch.Tensor] = None,
+    max_distance: Optional[float] = None,
+    inlier_fraction: float = 1.0,
+    require_reciprocal: bool = False,
+    metric: str = "l2",
+) -> Correspondences:
+    """Matching both ways, sized by the src cloud. ``require_reciprocal``
+    keeps src i only if its partner j maps back to i; otherwise the union:
+    the src→dst matches, with a dst→src match folded into its src slot
+    where it is closer (scatter-mins, exact on every device)."""
+    fwd = find_nn_correspondences(
+        src_features, dst_features, query_valid=src_valid, dst_valid=dst_valid,
+        max_distance=max_distance, metric=metric,
+    )
+    bwd = find_nn_correspondences(
+        dst_features, src_features, query_valid=dst_valid, dst_valid=src_valid,
+        max_distance=max_distance, metric=metric,
+    )
+    fwd_idx, bwd_idx = fwd.dst_idx.long(), bwd.dst_idx.long()
+    src_n = src_features.shape[0]
+    dev = src_features.device
+    qidx = torch.arange(src_n, dtype=torch.int32, device=dev)
+    if require_reciprocal:
+        mask = fwd.mask & bwd.mask[fwd_idx] & (bwd.dst_idx[fwd_idx] == qidx)
+        dist = fwd.distances
+        idx = fwd.dst_idx
+    else:
+        # Union: scatter dst→src matches into src slots, prefer the closer.
+        rev = torch.where(bwd.mask, bwd.distances, INVALID_DIST)
+        rev_d = torch.full((src_n,), INVALID_DIST, dtype=rev.dtype, device=dev)
+        rev_d = rev_d.scatter_reduce(0, bwd_idx, rev, "amin")
+        rows = torch.arange(bwd_idx.shape[0], dtype=torch.int32, device=dev)
+        won = bwd.mask & (bwd.distances <= rev_d[bwd_idx])
+        rev_j = torch.zeros(src_n, dtype=torch.int32, device=dev)
+        rev_j = rev_j.scatter_reduce(0, bwd_idx, torch.where(won, rows, 0), "amax")
+        use_rev = rev_d < fwd.distances
+        dist = torch.where(use_rev, rev_d, fwd.distances)
+        idx = torch.where(use_rev, rev_j, fwd.dst_idx)
+        mask = dist < INVALID_DIST
+    if inlier_fraction < 1.0:
+        mask &= dist <= _fraction_threshold(dist, mask, inlier_fraction)
+    return Correspondences(
+        dst_idx=torch.where(mask, idx, 0),
+        distances=torch.where(mask, dist, INVALID_DIST),
+        weights=mask.to(src_features.dtype),
+        mask=mask,
+    )
+
+
+def oracle_correspondences(
+    src_points: torch.Tensor,
+    dst_points: torch.Tensor,
+    dst_idx: torch.Tensor,
+    mask: torch.Tensor,
+    tf: Optional[Transform] = None,
+    max_distance: Optional[float] = None,
+) -> Correspondences:
+    """Fixed user-provided correspondences, re-scored under the current
+    transform with a squared-distance gate."""
+    s = src_points if tf is None else tf.apply(src_points)
+    diff = dst_points[dst_idx.long()] - s
+    dist = torch.sum(diff * diff, dim=-1)
+    m = mask
+    if max_distance is not None:
+        m = m & (dist <= max_distance)
+    return Correspondences(
+        dst_idx=torch.where(m, dst_idx, 0).to(torch.int32),
+        distances=torch.where(m, dist, INVALID_DIST),
+        weights=m.to(src_points.dtype),
+        mask=m,
+    )
+
+
+def combine_metric_correspondences(
+    corr_point: Correspondences,
+    corr_plane: Correspondences,
+    dst_points: torch.Tensor,
+    dst_normals: torch.Tensor,
+    *,
+    point_weight: float = 1.0,
+    plane_weight: float = 1.0,
+):
+    """Merge a point-metric and a plane-metric correspondence set (from two
+    search engines) into the arrays the GN estimators take: ``(dst (2Q, D),
+    nrm (2Q, D), w_point (2Q,), w_plane (2Q,))``, rows ``[0, Q)`` the point
+    metric (plane weight 0), rows ``[Q, 2Q)`` the plane metric (point
+    weight 0). Pass the source twice: ``torch.cat([s, s])``."""
+    q = corr_point.dst_idx.shape[0]
+    zeros = dst_points.new_zeros(q)
+    pi, li = corr_point.dst_idx.long(), corr_plane.dst_idx.long()
+    dst = torch.cat([dst_points[pi], dst_points[li]])
+    nrm = torch.cat([dst_points.new_zeros((q, dst_points.shape[1])), dst_normals[li]])
+    w_point = torch.cat([corr_point.weights * point_weight, zeros])
+    w_plane = torch.cat([zeros, corr_plane.weights * plane_weight])
+    return dst, nrm, w_point, w_plane

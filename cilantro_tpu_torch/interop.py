@@ -13,13 +13,16 @@ import torch
 
 from . import resolve_device
 from .core.containers import PointCloud
+from .core.pca import PCA
 from .core.rgbd import CameraIntrinsics
 from .core.transforms import Transform
+from .model_estimation.ransac import Hyperplane
 from .neighbors.api import Neighborhoods
 from .registration.warp_field import DeformationGraph, _with_segment_lengths
 from .slam.fusion import FusionMap
 from .slam.keyframes import Keyframe, KeyframeGraph
 from .slam.splat_fusion import SplatMap
+from .spatial.convex import ConvexPolytope
 
 
 def transform_from_numpy(linear, translation, device="cuda") -> Transform:
@@ -145,3 +148,32 @@ def ba_problem_from_numpy(linear, translation, landmarks, cam_idx, lmk_idx, obse
         _leaf(lmk_idx, np.int64, dev),
         _leaf(observations, np.float32, dev),
     )
+
+
+def hyperplane_from_numpy(normal, offset, device="cuda") -> Hyperplane:
+    """A port ``Hyperplane`` from a JAX one's ``normal`` and ``offset``."""
+    dev = resolve_device(device)
+    return Hyperplane(normal=_leaf(normal, np.float32, dev), offset=_leaf(offset, np.float32, dev))
+
+
+def pca_from_numpy(mean, eigenvalues, eigenvectors, device="cuda") -> PCA:
+    """A port ``PCA`` from a JAX one's ``mean``, ``eigenvalues`` and
+    ``eigenvectors``."""
+    dev = resolve_device(device)
+    return PCA(mean=_leaf(mean, np.float32, dev), eigenvalues=_leaf(eigenvalues, np.float32, dev),
+               eigenvectors=_leaf(eigenvectors, np.float32, dev))
+
+
+def convex_polytope_from_numpy(**fields) -> ConvexPolytope:
+    """A port ``ConvexPolytope`` from a JAX one's fields by name
+    (``dataclasses.asdict`` of it): both packages keep the polytope on the
+    host as numpy, so every array is copied and nothing moves to a device."""
+
+    def copy(a):
+        if a is None or isinstance(a, (bool, np.bool_)):
+            return a
+        if isinstance(a, (list, tuple)):
+            return [np.array(x) for x in a]
+        return np.array(a)
+
+    return ConvexPolytope(**{name: copy(value) for name, value in fields.items()})

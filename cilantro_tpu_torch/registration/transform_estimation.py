@@ -1,6 +1,5 @@
-"""Closed-form and Gauss-Newton transform estimators (port of the 3-D part of
-``cilantro_tpu/registration/transform_estimation.py``; the 2-D variants
-wait for a later slice).
+"""Closed-form and Gauss-Newton transform estimators (port of
+``cilantro_tpu/registration/transform_estimation.py``).
 
 Every estimator takes gathered, weighted correspondence arrays (weight 0
 drops a row) and returns ``(Transform, valid)``. The JAX package's
@@ -8,11 +7,14 @@ drops a row) and returns ``(Transform, valid)``. The JAX package's
 step norm back to the host (one sync) only when another iteration is
 allowed, so the default single iteration never syncs.
 
-The combined and symmetric metrics also take a batch of B independent
-problems (``(B, N, 3)`` arrays, ``(B, N)`` weights) and return a batch
-``(B,)`` of transforms: what the JAX package gets from a ``vmap``. A batch
-runs every GN iteration, each problem's estimate frozen once its own step
-norm falls below the tolerance, and never reads back to the host.
+A batch of independent problems is told by the input's rank, and rank-2
+inputs keep their exact ops. The point-to-point fits take a leading
+hypothesis axis (``(H, N, D)``, what the JAX package's RANSAC gets from a
+``vmap``); the 3-D combined and symmetric metrics take a batch of B
+problems (``(B, N, 3)`` arrays, ``(B, N)`` weights) and return ``(B,)``
+transforms. A GN batch runs every iteration, each problem's estimate
+frozen once its own step norm falls below the tolerance, and never reads
+back to the host. The 2-D metrics take one problem.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..core.transforms import (
     compose,
     per_stream,
     project_to_rotation,
+    rot2d,
     skew3,
 )
 
@@ -56,15 +59,31 @@ def _eye(d, like):
     return torch.eye(d, dtype=like.dtype, device=like.device)
 
 
+def _batched_outer_sum(w, a, b):
+    """``Σ_n w a bᵀ`` over the point axis of ``(..., N, I)``, ``(..., N, J)``
+    as a broadcast product: each hypothesis's sum, not a batched GEMM."""
+    return torch.sum((w[..., None] * a)[..., :, None] * b[..., None, :], -3)
+
+
 def estimate_rigid_point_to_point(
     src: torch.Tensor,
     dst: torch.Tensor,
     weights: Optional[torch.Tensor] = None,
 ) -> Tuple[Transform, torch.Tensor]:
     """Closed-form weighted Kabsch/Umeyama rigid fit ``R src + t ≈ dst``
-    for ``(N, D)`` correspondences. Returns the transform and whether at
-    least D correspondences carry weight."""
-    n, d = src.shape
+    for ``(N, D)`` correspondences, or a batch ``(H, N, D)`` of them.
+    Returns the transform and whether at least D correspondences carry
+    weight. 3×3 float32 fits on the card project through the rotation
+    kernel, other sizes through the SVD."""
+    d = src.shape[-1]
+    if src.dim() > 2:
+        w = _ones(src.shape[:-1], src) if weights is None else weights
+        mu_s, mu_d, _ = _weighted_means(src, dst, w)
+        c = _batched_outer_sum(w, dst - mu_d[..., None, :], src - mu_s[..., None, :])
+        r = project_to_rotation(c)
+        t = mu_d - torch.einsum("...ij,...j->...i", r, mu_s)
+        return Transform(r, t), torch.sum(w > 0, -1) >= d
+    n = src.shape[0]
     w = _ones(n, src) if weights is None else weights
     mu_s, mu_d, _ = _weighted_means(src, dst, w)
     cs = src - mu_s
@@ -83,8 +102,19 @@ def estimate_affine_point_to_point(
     weights: Optional[torch.Tensor] = None,
 ) -> Tuple[Transform, torch.Tensor]:
     """Closed-form weighted affine least-squares fit on mean-centred
-    homogeneous coordinates."""
-    n, d = src.shape
+    homogeneous coordinates, for ``(N, D)`` or a batch ``(H, N, D)``."""
+    d = src.shape[-1]
+    if src.dim() > 2:
+        w = _ones(src.shape[:-1], src) if weights is None else weights
+        mu_s, mu_d, _ = _weighted_means(src, dst, w)
+        x = torch.cat([src - mu_s[..., None, :], _ones(src.shape[:-1] + (1,), src)], dim=-1)
+        xtx = _batched_outer_sum(w, x, x) + _EPS * _eye(d + 1, src)
+        xtd = _batched_outer_sum(w, x, dst - mu_d[..., None, :])
+        beta = torch.linalg.solve_ex(xtx, xtd, check_errors=False)[0]
+        a = beta[..., :d, :].transpose(-1, -2)
+        t = beta[..., d, :] + mu_d - torch.einsum("...ij,...j->...i", a, mu_s)
+        return Transform(a, t), torch.sum(w > 0, -1) >= d + 1
+    n = src.shape[0]
     w = _ones(n, src) if weights is None else weights
     mu_s, mu_d, _ = _weighted_means(src, dst, w)
     cs = src - mu_s
@@ -170,6 +200,32 @@ def _gn_accumulate_3d_batched(src, dst, dst_normals, w_pp, w_pl, omega_points=No
     return jtj + block, jtr + torch.cat([jtr_w, jtr_t], dim=-1)
 
 
+def _gn_accumulate_2d(src, dst, dst_normals, w_pp, w_pl, omega_points=None):
+    """The 2-D combined metric's JᵀJ / Jᵀr, unknowns ``x = [θ; t]``, with
+    ``dR/dθ|₀ p = (−p_y, p_x)``; one problem ``(N, 2)``."""
+    if src.dim() > 2:
+        raise ValueError("the 2-D metrics take one problem (N, 2), not a batch")
+    p = src if omega_points is None else omega_points
+    ds = torch.stack([-p[:, 1], p[:, 0]], dim=1)  # (N, 2)
+
+    j_pl = torch.cat([torch.einsum("ni,ni->n", ds, dst_normals)[:, None], dst_normals], dim=1)
+    r_pl = torch.einsum("ni,ni->n", dst_normals, src - dst)
+    jtj = torch.einsum("n,ni,nj->ij", w_pl, j_pl, j_pl)
+    jtr = -torch.einsum("n,ni,n->i", w_pl, j_pl, r_pl)
+
+    r_pp = src - dst
+    # J_pp = [ds | I] (2 rows per correspondence).
+    jtj_tt = torch.sum(w_pp) * _eye(2, src)
+    jtj_aa = torch.einsum("n,ni,ni->", w_pp, ds, ds)[None, None]
+    jtj_at = torch.einsum("n,ni->i", w_pp, ds)[None, :]
+    jtr_a = -torch.einsum("n,ni,ni->", w_pp, ds, r_pp)[None]
+    jtr_t = -torch.einsum("n,ni->i", w_pp, r_pp)
+    block = torch.cat(
+        [torch.cat([jtj_aa, jtj_at], dim=1), torch.cat([jtj_at.T, jtj_tt], dim=1)], dim=0
+    )
+    return jtj + block, jtr + torch.cat([jtr_a, jtr_t])
+
+
 def _two_sided_update_3d(step):
     """GN update ``Ra · T(cos θ · t) · Ra`` with ``θ = atan‖ω‖``: the
     rotation on both sides of the cos-scaled translation. ``step (..., 6)``."""
@@ -186,23 +242,35 @@ def _two_sided_update_3d(step):
     )
 
 
+def _two_sided_update_2d(step):
+    """2-D analogue: ``Ra · T(cos θ · t) · Ra`` with ``θ = atan(step₀)``."""
+    theta = torch.atan(step[0])
+    half_r = rot2d(theta, dtype=step.dtype)
+    ta = torch.cos(theta) * step[1:]
+    zero = torch.zeros_like(ta)
+    return compose(
+        Transform(half_r, zero),
+        compose(Transform(_eye(2, step), ta), Transform(half_r, zero)),
+    )
+
+
 def _gauss_newton(src_c, dst_c, w_pp, w_pl, normals_of, max_iterations, convergence_tol):
     """The GN loop shared by the combined and symmetric metrics, in centred
     coordinates: iterate while ``it < max_iterations`` and the last step
     norm ≥ ``convergence_tol``. A batch of problems runs every iteration
     with each problem's transform frozen once its condition fails."""
     d = src_c.shape[-1]
+    acc, delta_of, dof = ((_gn_accumulate_3d, _two_sided_update_3d, 6) if d == 3
+                          else (_gn_accumulate_2d, _two_sided_update_2d, 3))
     batch = src_c.shape[:-2]
     tf = Transform(_eye(d, src_c).expand(batch + (d, d)), _zeros(batch + (d,), src_c))
     active = torch.ones(batch, dtype=torch.bool, device=src_c.device) if batch else None
     for it in range(max_iterations):
         s = (per_stream(tf) if batch else tf).apply(src_c)
         # Rotation rows couple (d + s): the two-sided linearization.
-        jtj, jtr = _gn_accumulate_3d(
-            s, dst_c, normals_of(tf), w_pp, w_pl, omega_points=s + dst_c
-        )
-        step = _solve_normal_equations(jtj, jtr, 6)
-        new_tf = compose(_two_sided_update_3d(step), tf)
+        jtj, jtr = acc(s, dst_c, normals_of(tf), w_pp, w_pl, omega_points=s + dst_c)
+        step = _solve_normal_equations(jtj, jtr, dof)
+        new_tf = compose(delta_of(step), tf)
         if batch:
             tf = Transform(torch.where(active[..., None, None], new_tf.linear, tf.linear),
                            torch.where(active[..., None], new_tf.translation, tf.translation))
@@ -232,12 +300,12 @@ def estimate_rigid_combined_metric(
     max_iterations: int = 1,
     convergence_tol: float = 1e-5,
 ) -> Tuple[Transform, torch.Tensor]:
-    """Rigid combined point-to-point + point-to-plane Gauss-Newton (3-D):
-    mean-centred coordinates, (d + s)-coupled rotation rows and the
+    """Rigid combined point-to-point + point-to-plane Gauss-Newton (2-D or
+    3-D): mean-centred coordinates, (d + s)-coupled rotation rows and the
     two-sided update."""
     d = src.shape[-1]
-    if d != 3:
-        raise ValueError(f"the port has the 3-D combined metric only, got D={d}")
+    if d not in (2, 3):
+        raise ValueError(f"the rigid metrics take 2-D or 3-D points, got D={d}")
     w_pp = _zeros(src.shape[:-1], src) if point_weights is None else point_weights
     w_pl = _ones(src.shape[:-1], src) if plane_weights is None else plane_weights
     mu_s, mu_d, _ = _weighted_means(src, dst, w_pp + w_pl)
@@ -260,11 +328,11 @@ def estimate_rigid_symmetric_metric(
     max_iterations: int = 1,
     convergence_tol: float = 1e-5,
 ) -> Tuple[Transform, torch.Tensor]:
-    """Symmetric-metric rigid Gauss-Newton (3-D): plane rows use the
+    """Symmetric-metric rigid Gauss-Newton (2-D or 3-D): plane rows use the
     un-normalized ``n = n_dst + R n_src``, the update is two-sided."""
     d = src.shape[-1]
-    if d != 3:
-        raise ValueError(f"the port has the 3-D symmetric metric only, got D={d}")
+    if d not in (2, 3):
+        raise ValueError(f"the rigid metrics take 2-D or 3-D points, got D={d}")
     w_pp = _zeros(src.shape[:-1], src) if point_weights is None else point_weights
     w_pl = _ones(src.shape[:-1], src) if plane_weights is None else plane_weights
     mu_s, mu_d, _ = _weighted_means(src, dst, w_pp + w_pl)

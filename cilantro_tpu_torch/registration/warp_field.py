@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.segment import sorted_sum
 from ..core.transforms import (
     Transform,
     axis_angle_to_rotation,
@@ -53,14 +54,6 @@ _CG_CHUNK = 16  # CG iterations between two host reads of the loop flag
 def _on(x, dev, dtype=None):
     """``x`` (numpy array or tensor, or None) as a tensor on ``dev``."""
     return None if x is None else torch.as_tensor(x, dtype=dtype, device=dev)
-
-
-def sorted_sum(values, lengths):
-    """Sums of consecutive runs of ``values`` rows, one per entry of
-    ``lengths`` (0 for an empty run), each run added in order:
-    deterministic on every device. ``unsafe`` skips the lengths checks,
-    which read back to the host; the lengths come from the graph build."""
-    return torch.segment_reduce(values, "sum", lengths=lengths, axis=0, unsafe=True)
 
 
 def _segment_sum(values, seg_ids, lengths, num_segments):

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import resolve_device
+from ..core.segment import sorted_sum
 from ..core.transforms import Transform, axis_angle_to_rotation, project_to_rotation
 from .warp_field import (
     _ASSEMBLY_CHUNK,
@@ -32,7 +33,6 @@ from .warp_field import (
     finish_normal_matrix,
     narrow_inputs,
     node_motion,
-    sorted_sum,
     write_pair_blocks,
 )
 

@@ -35,7 +35,7 @@ from ..core.transforms import (
     project_to_rotation,
     skew3,
 )
-from .pose_graph import sorted_scatter_plan, sorted_scatter_sum
+from ..core.segment import sorted_scatter_plan, sorted_scatter_sum
 
 _EPS = 1e-12
 
@@ -43,7 +43,7 @@ _EPS = 1e-12
 @dataclasses.dataclass(frozen=True)
 class _Segments:
     """The observations' sorted-sum plans by camera and by landmark
-    (:func:`.pose_graph.sorted_scatter_plan`, counted once a call on the
+    (:func:`..core.segment.sorted_scatter_plan`, counted once a call on the
     host)."""
 
     cam: tuple

@@ -11,7 +11,7 @@ module's expression order: the differences amplify float32 rounding by
 JAX's ``lax.while_loop`` is a host loop here with one host read an
 iteration (the update norm against ``tol``). The scatter-adds into the
 ``(K, K, 6, 6)`` normal matrix are sorted segment reductions over an
-order counted once a call (:func:`sorted_scatter_sum`), so two card runs
+order counted once a call (:func:`..core.segment.sorted_scatter_sum`), so two card runs
 give the same bits; the 6K × 6K system goes through
 ``torch.linalg.solve_ex``, which leaves its status on the device.
 """
@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.segment import sorted_scatter_plan, sorted_scatter_sum
 from ..core.transforms import (
     Transform,
     axis_angle_to_rotation,
@@ -30,7 +31,6 @@ from ..core.transforms import (
     inverse,
     project_to_rotation,
 )
-from ..registration.warp_field import sorted_sum
 
 _EPS = 1e-12
 
@@ -67,32 +67,6 @@ def _retract(p: Transform, delta: torch.Tensor) -> Transform:
     lin = torch.einsum("...kij,...kjl->...kil", p.linear, rot)
     tr = torch.einsum("...kij,...kj->...ki", p.linear, delta[..., 3:]) + p.translation
     return Transform(lin, tr)
-
-
-def sorted_scatter_plan(keys: np.ndarray, num_segments: int, dev):
-    """``(order, lengths, targets)`` for summing rows by ``keys`` (host
-    integers in ``[0, num_segments)``) with :func:`sorted_scatter_sum`: the
-    stable order (the rows of one key keep their order, as a sequential
-    scatter-add adds them), the run lengths and the distinct keys."""
-    keys = np.asarray(keys, np.int64)
-    if keys.size and (keys.min() < 0 or keys.max() >= num_segments):
-        raise ValueError(f"segment ids out of [0, {num_segments})")
-    uniq, counts = np.unique(keys, return_counts=True)
-    return (
-        torch.as_tensor(np.argsort(keys, kind="stable"), device=dev),
-        torch.as_tensor(counts, device=dev),
-        torch.as_tensor(uniq, device=dev),
-    )
-
-
-def sorted_scatter_sum(values: torch.Tensor, plan, num_segments: int) -> torch.Tensor:
-    """``zeros(num_segments, ...).at[keys].add(values)`` with the rows of
-    each key added in order: a sorted segment reduction, so the same bits
-    on every run of every device (``index_add_`` adds with atomics on the
-    card)."""
-    order, lengths, targets = plan
-    out = values.new_zeros((num_segments,) + values.shape[1:])
-    return out.index_copy_(0, targets, sorted_sum(values[order], lengths))
 
 
 def optimize_pose_graph(

@@ -26,10 +26,17 @@ MODULES = [
     ("core.covariance", ["core.covariance"]),
     ("core.grid", ["core.grid"]),
     ("core.normals", ["core.normals"]),
+    ("core.pair_evaluators", ["core.pair_evaluators"]),
+    ("core.pca", ["core.pca"]),
     ("core.rgbd", ["core.rgbd"]),
     ("core.transforms", ["core.transforms"]),
+    ("clustering.connected_components", ["clustering.connected_components"]),
+    ("clustering.kmeans", ["clustering.kmeans"]),
+    ("clustering.mean_shift", ["clustering.mean_shift"]),
+    ("clustering.spectral", ["clustering.spectral"]),
     ("correspondence.projective", ["correspondence.projective"]),
     ("correspondence.search", ["correspondence.search"]),
+    ("model_estimation.ransac", ["model_estimation.ransac"]),
     ("neighbors.api", ["neighbors.api"]),
     ("neighbors.bruteforce", ["neighbors.bruteforce"]),
     ("neighbors.gridhash", ["neighbors.gridhash"]),
@@ -49,17 +56,15 @@ MODULES = [
     ("slam.slam", ["slam.slam"]),
     ("slam.batched_fusion", ["slam.batched_fusion"]),
     ("slam.pipeline", ["slam.pipeline"]),
+    ("spatial.convex", ["spatial.convex"]),
+    ("spatial.space_region", ["spatial.space_region"]),
+    ("utils.graph", ["utils.graph"]),
+    ("utils.mds", ["utils.mds"]),
 ]
 
-# Names a later slice ports (ROADMAP.md Queue 1): the 2-D helpers and the
-# bidirectional, oracle and combined correspondences (Slice G), PLY files
-# (Slice G, with utils/ply_io), the sharded BA (Slice H).
+# Names a later slice ports (ROADMAP.md Queue 1): PLY files (Slice G2, with
+# utils/ply_io), the sharded BA (Slice H).
 LATER = {
-    "core.transforms": {"rot2d", "gn_update_2d"},
-    "correspondence.search": {
-        "find_nn_correspondences_bidirectional", "oracle_correspondences",
-        "combine_metric_correspondences",
-    },
     "core.containers": {"PointCloud.to_ply", "PointCloud.from_ply"},
     "slam.bundle_adjustment": {"bundle_adjust_sharded"},
 }
@@ -166,6 +171,28 @@ def test_slam_package_exports():
                  "batched_integrate", "batched_seed_localize_target", "run_batched_fusion_sequences",
                  "stack_maps", "unstack_maps"):
         assert name in tnames, name
+
+
+# The packages whose ``__init__`` re-exports JAX's names. The Slice G2 names
+# are members (``PointCloud.to_ply`` / ``from_ply``, in ``LATER``), not
+# package names, so none is left out here.
+PACKAGES = ("core", "neighbors", "correspondence", "clustering", "model_estimation", "spatial")
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_package_reexports(pkg):
+    """``cilantro_tpu_torch.<pkg>`` re-exports every public name of JAX's
+    ``cilantro_tpu.<pkg>`` (the functions, classes and submodules it
+    imports by name), each the port's own counterpart."""
+    jpkg = importlib.import_module(f"cilantro_tpu.{pkg}")
+    tpkg = importlib.import_module(f"cilantro_tpu_torch.{pkg}")
+    jnames = {n for n in vars(jpkg) if not n.startswith("_") and callable(getattr(jpkg, n))}
+    jnames |= {n for n in ("pair_evaluators",) if hasattr(jpkg, n)}
+    missing = jnames - set(vars(tpkg))
+    assert not missing, sorted(missing)
+    for name in jnames:
+        obj = getattr(tpkg, name)
+        assert getattr(obj, "__module__", getattr(obj, "__name__", "")).startswith("cilantro_tpu_torch"), name
 
 
 # The members Queue 3 found missing, against JAX's behaviour.

@@ -193,3 +193,35 @@ def test_multi_stream_entry_points_raise_without_cuda(monkeypatch):
     assert data.device.type == "cpu" and metrics.poses.shape == (2, 2, 4, 4)
     fmap, metrics = slam.run_fusion_sequence_pipelined(list(stacks[0]), k, device="cpu")
     assert fmap.data.device.type == "cpu" and metrics.frames == 2
+
+
+def test_estimation_entry_points_raise_without_cuda(monkeypatch):
+    """The estimation, clustering, MDS and spatial entry points default to
+    the card for numpy input: without CUDA they raise, and run on the CPU
+    only when asked or when handed CPU tensors."""
+    from cilantro_tpu_torch import clustering, model_estimation, spatial
+    from cilantro_tpu_torch.utils import mds
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).random((64, 3)).astype(np.float32)
+    calls = {
+        "ransac_plane": lambda **kw: model_estimation.ransac_plane(None, pts, 0.01, num_hypotheses=4, **kw),
+        "ransac_transform": lambda **kw: model_estimation.ransac_transform(None, pts, pts, 0.01,
+                                                                           num_hypotheses=4, **kw),
+        "kmeans": lambda **kw: clustering.kmeans(None, pts, 2, **kw),
+        "mean_shift": lambda **kw: clustering.mean_shift(pts, 0.5, **kw),
+        "spectral_clustering": lambda **kw: clustering.spectral_clustering(None, np.eye(12, dtype=np.float32),
+                                                                           2, **kw),
+        "mds": lambda **kw: mds.mds(np.eye(5, dtype=np.float32), 2, **kw),
+        "contains": lambda **kw: spatial.ConvexPolytope.from_points(pts[:8]).contains(pts, **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        out = call(device="cpu")
+        leaf = out[0] if isinstance(out, tuple) else out
+        tensor = leaf if isinstance(leaf, torch.Tensor) else next(
+            v for v in vars(leaf).values() if isinstance(v, torch.Tensor))
+        assert tensor.device.type == "cpu", name
+    res = clustering.kmeans(torch.Generator(), torch.as_tensor(pts), 2)
+    assert res.labels.device.type == "cpu"

@@ -19,6 +19,7 @@ import torch
 
 from cilantro_tpu.core.transforms import Transform as JTransform
 from cilantro_tpu.slam import pose_graph as jpg
+from cilantro_tpu_torch.core import segment as seg
 from cilantro_tpu_torch.core.transforms import Transform
 from cilantro_tpu_torch.slam import pose_graph as tpg
 from cilantro_tpu_torch.tools import slam_problems as sp
@@ -86,7 +87,7 @@ def test_scatter_sum_adds_in_scatter_order():
     rng = np.random.default_rng(3)
     keys = rng.integers(0, 7, 50)
     values = torch.as_tensor(rng.standard_normal((50, 6)).astype(np.float32) * 10 ** rng.uniform(-3, 3, (50, 1)).astype(np.float32))
-    got = tpg.sorted_scatter_sum(values, tpg.sorted_scatter_plan(keys, 9, "cpu"), 9)
+    got = seg.sorted_scatter_sum(values, seg.sorted_scatter_plan(keys, 9, "cpu"), 9)
     want = torch.zeros(9, 6)
     for key, v in zip(keys, values):
         want[key] = want[key] + v
