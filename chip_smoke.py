@@ -248,7 +248,29 @@ in order; any failure raises and exits non-zero without the final line:
     best hypothesis and inlier counts within 0.1% of N, k-means with the
     same iterations, centroids within 1e-4 and ≥ 99.9% of labels equal,
     components with the same count and ≥ 99.9% of labels equal after
-    renaming, PCA within 1e-5.
+    renaming, PCA within 1e-5;
+33. PLY files: the host C++ (``cilantro_tpu_torch/csrc/host/``) built
+    with ``g++`` (a failed build raises); frames 0 and 1 (compacted,
+    colours the ``jet`` colormap of the depth) written by ``to_ply`` in
+    binary and ASCII under a temporary directory and read back by the C++
+    codec (called directly) and the Python parser: points and normals bit
+    for bit, the 8-bit colours equal; the binary pair loaded onto the card
+    by ``PointCloud.from_ply`` and registered as phase 15 does (frame 1
+    onto frame 0): normals, pose and iterations bit for bit those of the
+    in-memory pair, within phase 6's bounds; each kernel of that run
+    (compact kNN, compact nn1, rotation) held bit for bit on its last
+    call; host ms (median of 3) of a write and a read of each format by
+    each reader, and the file sizes;
+34. the pool host loop on 6 frames with a ``LiveMapViewer(every=2)``
+    hook: each snapshot's scene holds the map's valid points, subsampled
+    as ``live.py`` does, bit for bit; the gather and the rotation kernel
+    held bit for bit on their last calls there; ``render_cloud_image`` of
+    the final map on the card against ``device="cpu"`` (the background
+    the same, the share of pixels whose colours differ by more than 1e-6);
+    ``op_time`` of the integrate-stream gather, eager (linearity > 1.3)
+    and over CUDA-graph replays of its two loops, beside the CUDA-event
+    median, and its ``roofline`` line (on standard error); the snapshots'
+    host ms.
 
 Before phase 23 one empty launch (``torch.cuda._sleep(0)``) is timed as in
 phase 2, beside the gather's ICP-stream time and bound (informational).
@@ -266,6 +288,7 @@ the ``slam_paths`` line on phases 26-27 (by stage; the scanned front end's
 wrappers run at its warm-up step and its capture, and the line gives its
 launches a replay beside them), the ``batched_paths`` line on phases
 28-29 (launches a replay, and those counted over the run), the
+``g2_paths`` line on phases 33-34, the
 ``estimation_paths`` line on phases 30-32 (by path; each kernel of phases
 30-31 held bit for bit against its plain version on the inputs of its
 last call on each path at each input shape and ``k``, and timed beside
@@ -281,6 +304,7 @@ gives them; the last is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -2095,6 +2119,13 @@ def best_host_ms(fn, reps=3) -> float:
     return min(times)
 
 
+def chunked_cdist_min(q, k):
+    """Each query's nearest key by ``torch.cdist`` + ``min`` over query
+    chunks of at most 2^30 distances (4 GiB)."""
+    rows = max(1, 2**30 // max(k.shape[0], 1))
+    return [torch.cdist(q[i:i + rows], k).min(dim=1) for i in range(0, q.shape[0], rows)]
+
+
 def _real_rows(qp, kp):
     """Query rows that are points (the augmented "1" column) and key rows
     that are live points (a "1" column and a finite norm), 3-D rows."""
@@ -2152,6 +2183,10 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
                 plain = lambda: plain_fn(qp, kp)  # noqa: E731
                 nq, nk = _real_rows(qp, kp)
                 pairs, nbytes = nq * nk, (qp.numel() + kp.numel()) * 4 + qp.shape[0] * 8
+                q, kk = -0.5 * qp[qp[:, 4] == 1, :3], kp[(kp[:, 3] == 1) & (kp[:, 4] < 1e37), :3]
+                library = lambda: chunked_cdist_min(q, kk)  # noqa: E731
+                extra = dict(library_is="torch.cdist + min over query chunks of at most 2^30 distances "
+                                        "(a two-call yardstick; one cdist would not fit at 307,200²)")
             else:
                 tq, tm = kwargs["tile_q"], kwargs["tile_m"]
                 plain = lambda: plain_fn(*args, tq, tm)  # noqa: E731
@@ -2164,7 +2199,7 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
                 pairs = live * tq * tm
                 nbytes = (qp.numel() + kp.numel()) * 4 + qp.shape[0] * 8 + list_bytes
                 extra = dict(live_tile_pairs=live, tiles=[tq, tm])
-            extra.update(library_is="none: no PyTorch call visits only the surviving pairs")
+            extra.setdefault("library_is", "none: no PyTorch call visits only the surviving pairs")
         elif name == "project_to_rotation":
             (x,) = args
             kernel = lambda: tfm.project_to_rotation(x)  # noqa: E731
@@ -2199,7 +2234,8 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
             name=name, route="cuda", source=KERNEL_SOURCES[name], replaces=REPLACES[name],
             launches=launches[name], max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)),
             ms=device_ms(kernel), plain_ms=host_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None if library is None else device_ms(library), pairs=pairs, bytes=nbytes,
+            library_ms=None if library is None else once_ms(library, 3) if name == "nn1_fused" else device_ms(library),
+            pairs=pairs, bytes=nbytes,
         )
         emit(phase=phase, path=path, tolerance="bit-exact",
              plain_timer="host clock, median of 3", **entry, **extra)
@@ -3350,6 +3386,229 @@ def estimation_paths(pair, card):
     return paths, held
 
 
+# ---------------------------------------------------------------------------
+# Slice G2: PLY files, the host codec, the live viewer, renders and timers.
+# ---------------------------------------------------------------------------
+
+
+def ply_frame_clouds(depths, k, dev):
+    """Frames 0 and 1 as compacted clouds on the card: points and normals
+    from the depth image, colours the ``jet`` colormap of the depth (the
+    port's colormap on the card)."""
+    from cilantro_tpu_torch.core.containers import PointCloud, compact
+    from cilantro_tpu_torch.core.rgbd import depth_to_points_normals
+    from cilantro_tpu_torch.utils import colormap
+
+    out = []
+    for depth in depths[:2]:
+        d = torch.as_tensor(depth, device=dev)
+        pts, nrm, valid = depth_to_points_normals(d, k)
+        out.append(compact(PointCloud(points=pts, normals=nrm, colors=colormap(d.reshape(-1)), valid=valid)))
+    return out
+
+
+def same_bits(a, b) -> bool:
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def register_pair(icp_mod, src, dst):
+    """Phase 15's registration of ``src`` onto ``dst``: ``dst``'s normals
+    from ``with_normals_knn(k=12)``, then ``icp_multires`` with the bench
+    levels."""
+    dst_n = dst.with_normals_knn(KNN_K)
+    res = icp_mod.icp_multires(
+        src.points, dst_n.points, dst_normals=dst_n.normals, src_valid=src.valid, dst_valid=dst_n.valid,
+        metric="combined", convergence_tol=1e-4, levels=BENCH_LEVELS,
+    )
+    return dst_n, res
+
+
+def ply_path(depths, k, rel, card):
+    """Phase 33: frames 0 and 1 written to PLY (binary and ASCII) and read
+    back by the C++ codec (called directly, so a codec that does not build
+    fails the run) and by the Python parser; the binary pair loaded onto the
+    card by ``PointCloud.from_ply`` and registered as phase 15 does, normals
+    and pose bit for bit those of the in-memory clouds; the kernels of that
+    run held bit for bit on their last calls."""
+    import tempfile
+
+    from cilantro_tpu_torch import native
+    from cilantro_tpu_torch.core.containers import PointCloud
+    from cilantro_tpu_torch.registration import icp as icp_mod
+    from cilantro_tpu_torch.utils.ply_io import _read_point_cloud_python
+
+    t0 = time.perf_counter()
+    compiled = native.build_host()
+    build_s = time.perf_counter() - t0
+    clouds = ply_frame_clouds(depths, k, torch.device("cuda"))
+    host = [tuple(a.cpu().numpy() for a in (c.points, c.normals, c.colors)) for c in clouds]
+    u8 = [np.clip(h[2] * 255.0 + 0.5, 0, 255).astype(np.uint8) for h in host]
+    rec = dict(phase="ply_path", points=[int(c.capacity) for c in clouds], g_plus_plus_build_s=build_s,
+               compiled=sorted(compiled), card=card)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for fmt, binary in (("binary", True), ("ascii", False)):
+            paths[fmt] = [os.path.join(tmp, f"frame{i}_{fmt}.ply") for i in (0, 1)]
+            for c, p in zip(clouds, paths[fmt]):
+                c.to_ply(p, binary=binary)
+            rec[f"{fmt}_bytes"] = [os.path.getsize(p) for p in paths[fmt]]
+            rec[f"{fmt}_write_ms"] = host_ms(lambda: clouds[0].to_ply(paths[fmt][0], binary=binary))
+            for reader, read in (("native", native.ply_read_native), ("python", _read_point_cloud_python)):
+                for i, p in enumerate(paths[fmt]):
+                    pts, nrm, col = read(p)
+                    if not (same_bits(pts, host[i][0]) and same_bits(nrm, host[i][1])):
+                        raise AssertionError(f"{reader} reader: frame {i}'s {fmt} file gave other points or normals")
+                    if not np.array_equal(np.clip(col * 255.0 + 0.5, 0, 255).astype(np.uint8), u8[i]):
+                        raise AssertionError(f"{reader} reader: frame {i}'s {fmt} file gave other 8-bit colours")
+                rec[f"{fmt}_read_{reader}_ms"] = host_ms(lambda: read(paths[fmt][0]))
+        nat, py = native.ply_read_native(paths["binary"][0]), _read_point_cloud_python(paths["binary"][0])
+        rec["binary_readers_same_points_normals"] = same_bits(nat[0], py[0]) and same_bits(nat[1], py[1])
+        rec["binary_readers_colour_max_diff"] = float(np.abs(nat[2] - py[2]).max())
+        if not rec["binary_readers_same_points_normals"]:
+            raise AssertionError("the two readers gave other bits for one binary file")
+        loaded = [PointCloud.from_ply(p) for p in paths["binary"]]
+    if not all(c.points.device.type == "cuda" for c in loaded):
+        raise AssertionError("from_ply did not land on the card")
+    want_n, want = register_pair(icp_mod, clouds[1], clouds[0])
+    reset_all_counts()
+    kept = {}
+    t0 = time.perf_counter()
+    with last_kernel_calls(kept):
+        got_n, got = register_pair(icp_mod, loaded[1], loaded[0])
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: v for name, v in all_counts().items() if v}
+    same = (torch.equal(got_n.normals.view(torch.int32), want_n.normals.view(torch.int32))
+            and torch.equal(got_n.valid, want_n.valid)
+            and torch.equal(got.transform.linear.view(torch.int32), want.transform.linear.view(torch.int32))
+            and torch.equal(got.transform.translation.view(torch.int32),
+                            want.transform.translation.view(torch.int32))
+            and int(got.iterations) == int(want.iterations))
+    dt, dr = gt_error(got.transform.linear, got.transform.translation, rel)
+    rec.update(launches=launches, register_ms=ms, same_bits_as_in_memory=same, iterations=int(got.iterations),
+               translation_error_m=dt, rotation_error_rad=dr)
+    emit(**rec)
+    if not same:
+        raise AssertionError("normals or pose from the PLY-loaded pair differ from the in-memory pair's")
+    if not (launches.get("knn_compact") and launches.get("nn1_compact")):
+        raise AssertionError(f"the PLY-loaded registration did not run both compact kernels: {launches}")
+    if not (dt < 5e-4 and dr < 1e-4):
+        raise AssertionError(f"PLY-loaded registration off by {dt} m / {dr} rad")
+    held = warp_kernel_checks(kept, launches, "PLY-loaded pair: with_normals_knn + icp_multires",
+                              phase="g2_kernel_vs_plain")
+    return {"phase": 33, "path": "PLY-loaded pair: with_normals_knn(k=12) + icp_multires",
+            "launches": launches, "held_bit_exact": sorted(held)}
+
+
+def scene_points(html: str, name: str) -> np.ndarray:
+    """The positions of the points object ``name`` in a page's scene."""
+    import base64
+    import re
+
+    scene = json.loads(re.search(r"const SCENE = (\{.*?\});\n", html, re.S).group(1))
+    obj = next(p for p in scene["objects"] if p["name"] == name and p["kind"] == "points")
+    return np.frombuffer(base64.b64decode(obj["pos"]), np.float32).reshape(-1, 3)
+
+
+def graph_loops(fn, args, lo, hi):
+    """``fn(*args)`` run ``lo`` and ``hi`` times, each loop captured in a
+    CUDA graph; the two replays (``op_time``'s ``precompiled`` pair)."""
+    from cilantro_tpu_torch.utils.honest_timing import _looped
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)  # warm-up off the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = []
+    for iters in (lo, hi):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            _looped(fn, iters)(*args)
+        graphs.append(g)
+    return tuple(lambda *a, g=g: g.replay() for g in graphs)
+
+
+def viz_path(depths, k, streams, card):
+    """Phase 34: the pool host-loop driver on 6 frames with a
+    ``LiveMapViewer(every=2)`` hook (each snapshot's scene holds the map's
+    valid points, subsampled as ``live.py`` does); the gather held bit for
+    bit on its last call there; ``render_cloud_image`` of the final map on
+    the card against the CPU; ``op_time`` of the integrate-stream gather
+    beside the CUDA-event median, and its roofline line."""
+    import tempfile
+
+    from cilantro_tpu_torch.core import coalesced as cg
+    from cilantro_tpu_torch.core.containers import PointCloud
+    from cilantro_tpu_torch.slam.driver import run_fusion_sequence
+    from cilantro_tpu_torch.utils.honest_timing import op_time
+    from cilantro_tpu_torch.utils.roofline import roofline
+    from cilantro_tpu_torch.viz import LiveMapViewer, render_cloud_image
+
+    frames = 6
+    snaps = []
+    with tempfile.TemporaryDirectory() as tmp:
+        page = os.path.join(tmp, "live.html")
+        viewer = LiveMapViewer(page, every=2)
+
+        def hook(fi, fmap, pose):
+            t0 = time.perf_counter()
+            viewer(fi, fmap, pose)
+            ms = (time.perf_counter() - t0) * 1e3
+            if fi % viewer.every == 0:
+                live = fmap.points[fmap.valid]
+                step = max(len(live) // viewer.subsample, 1) if len(live) > viewer.subsample else 1
+                with open(page) as f:
+                    html = f.read()
+                snaps.append(dict(frame=fi, ms=ms, map_points=int(live.shape[0]), page_bytes=len(html),
+                                  same=same_bits(scene_points(html, "map"), live[::step].cpu().numpy())))
+
+        reset_all_counts()
+        kept = {}
+        with last_kernel_calls(kept):
+            fmap, met = run_fusion_sequence(depths[:frames], k, map_capacity=POOL_CAPACITY, cfg=pool_config(),
+                                            on_frame=hook, device="cuda")
+            torch.cuda.synchronize()
+    launches = {name: v for name, v in all_counts().items() if v}
+    if [s["frame"] for s in snaps] != [2, 4] or not all(s["same"] for s in snaps):
+        raise AssertionError(f"live snapshots {snaps}")
+    if not launches.get("coalesced_gather"):
+        raise AssertionError(f"the pool run with the viewer launched no gather: {launches}")
+    held = warp_kernel_checks(kept, launches, "run_fusion_sequence, 6 frames, LiveMapViewer(every=2)",
+                              phase="g2_kernel_vs_plain")
+    cloud = PointCloud(points=fmap.points, normals=fmap.normals, valid=fmap.valid)
+    img = render_cloud_image(cloud, color_by="normal")
+    img_cpu = render_cloud_image(cloud, color_by="normal", device="cpu")
+    bg, bg_cpu = img == 1.0, img_cpu == 1.0
+    off = np.abs(img - img_cpu).max(-1) > 1e-6
+    render = dict(height=480, width=640, drawn_pixels=int((~bg.all(-1)).sum()),
+                  background_same=bool(np.array_equal(bg, bg_cpu)), pixels_beyond_1e6=int(off.sum()),
+                  share_beyond_1e6=float(off.mean()), max_abs_diff=float(np.abs(img - img_cpu).max()),
+                  ms=host_ms(lambda: render_cloud_image(cloud, color_by="normal")),
+                  cpu_ms=host_ms(lambda: render_cloud_image(cloud, color_by="normal", device="cpu")))
+    if not render["background_same"]:
+        raise AssertionError("the card's render and the CPU's differ in their background")
+    src, idx = streams["integrate_rows"]
+    gather = lambda s, i: cg.coalesced_gather(s, i)  # noqa: E731
+    event_ms = device_ms(lambda: gather(src, idx))
+    eager = op_time(gather, (src, idx))
+    replayed = op_time(gather, (src, idx), precompiled=graph_loops(gather, (src, idx), 2, 8))
+    n, w = idx.shape[0], src.shape[1]
+    distinct = int(torch.unique(idx.clamp(0, src.shape[0] - 1)).numel())
+    nbytes = n * 4 + n * w * 4 + distinct * w * 4
+    line = roofline("coalesced_gather integrate stream", event_ms / 1e3, bytes_moved=nbytes, rows=n)
+    timing = dict(event_median_ms=event_ms, op_time_eager=dataclasses.asdict(eager),
+                  op_time_graph=dataclasses.asdict(replayed), roofline=line.strip(), bytes=nbytes, rows=n)
+    emit(phase="viz_path", frames=frames, launches=launches, icp_iterations=met.icp_iterations,
+         snapshots=snaps, render=render, gather_timing=timing, card=card)
+    print(line, file=sys.stderr, flush=True)
+    if not eager.linearity > 1.3:
+        raise AssertionError(f"op_time of the gather is not linear in its loop length: {eager}")
+    return {"phase": 34, "path": "run_fusion_sequence, 6 frames, LiveMapViewer(every=2)", "launches": launches,
+            "held_bit_exact": sorted(held)}
+
+
 KERNEL_SOURCES = {
     "knn_full": "cilantro_tpu_torch/csrc/knn_kernels.cu",
     "knn_compact": "cilantro_tpu_torch/csrc/knn_kernels.cu",
@@ -3578,6 +3837,11 @@ def main() -> int:
     # clustering path, then card against CPU.
     est_paths, _ = estimation_paths(pair, card)
     print(json.dumps({"estimation_paths": est_paths}), flush=True)
+
+    # 33-34. PLY files through the host codec onto the card, then the live
+    # viewer, the render and the timers on the pool path.
+    g2_paths = [ply_path(depths, k, rel, card), viz_path(depths, k, streams, card)]
+    print(json.dumps({"g2_paths": g2_paths}), flush=True)
 
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]

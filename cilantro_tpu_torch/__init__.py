@@ -14,12 +14,13 @@ it launches the kernel or raises.
 
 Ported so far (splat fusion, rigid ICP, pool fusion, neighbour engines
 and normals, the scanned drivers, the non-rigid warp, the SLAM backend,
-multi-stream fusion, estimation and clustering):
+multi-stream fusion, estimation and clustering, PLY I/O, the utilities
+and visualization; not the multi-device paths):
 
 core            ``Transform`` and its ops (the closest rotation through a
                 kernel, ``csrc/rotation_kernels.cu``), ``CameraIntrinsics``, depth →
                 points (+normals), the z-buffer, ``PointCloud`` (with
-                kNN / radius normals), grids, covariance and MCD,
+                kNN / radius normals, PLY files), grids, covariance and MCD,
                 normal estimation, PCA, the pair evaluators, the
                 wide-row gather kernel (``core/coalesced.py``)
 neighbors       exact 1-NN and the nn1 kernels (``neighbors/fused_nn.py``),
@@ -46,7 +47,15 @@ clustering      k-means, mean shift, connected components, spectral
                 clustering (dense and on a kNN graph, with LOBPCG)
 spatial         convex polytopes and space regions (hulls on the host,
                 containment on the device)
-utils           nearest-neighbour graph matrices and classical MDS
+utils           PLY and matrix I/O, nearest-neighbour graph matrices,
+                classical MDS, colour maps, timers, roofline lines (H100
+                peaks), two-count op timing, profiling on torch.profiler
+viz             renders through the z-buffer, PNG artefacts (matplotlib,
+                optional), the standalone WebGL viewer and the fusion
+                drivers' live snapshot hook
+native          the CUDA kernels' nvcc build, and the host C++ (the PLY
+                codec and the single-core CPU baselines, ``csrc/host/``)
+                built with g++
 interop         build port state (clouds, maps, deformation graphs,
                 keyframe graphs, BA problems) from the JAX package's
                 leaves (numpy)

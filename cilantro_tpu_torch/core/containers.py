@@ -1,6 +1,5 @@
 """Masked fixed-capacity point clouds (port of
-``cilantro_tpu/core/containers.py``, all but PLY input/output, which waits
-for the utilities slice).
+``cilantro_tpu/core/containers.py``).
 
 A :class:`PointCloud` holds row-major ``(N, D)`` tensors and a boolean
 ``valid`` mask: removal clears mask bits, :func:`append` concatenates
@@ -119,6 +118,24 @@ class PointCloud:
             view_point=self._view_point(view_point),
         )
         return dataclasses.replace(self, normals=normals, valid=self.valid_mask() & ok)
+
+    def to_ply(self, path: str, binary: bool = True) -> None:
+        """Reference ``toPLYFile``: the valid points, in slot order, moved
+        to the host (:func:`~cilantro_tpu_torch.utils.ply_io.write_point_cloud`)."""
+        from ..utils.ply_io import write_point_cloud
+
+        mask = self.valid_mask().cpu().numpy()
+        host = lambda a: None if a is None else a.detach().cpu().numpy()[mask]  # noqa: E731
+        write_point_cloud(path, host(self.points), host(self.normals), host(self.colors), binary=binary)
+
+    @staticmethod
+    def from_ply(path: str, capacity: Optional[int] = None, device="cuda") -> "PointCloud":
+        """Reference PLY ctor (``point_cloud.hpp:118-121``): a cloud on
+        ``device`` (the card by default) through :func:`from_numpy`."""
+        from ..utils.ply_io import read_point_cloud
+
+        pts, normals, colors = read_point_cloud(path)
+        return from_numpy(pts, normals, colors, capacity=capacity, device=device)
 
 
 def from_numpy(

@@ -60,12 +60,21 @@ MODULES = [
     ("spatial.space_region", ["spatial.space_region"]),
     ("utils.graph", ["utils.graph"]),
     ("utils.mds", ["utils.mds"]),
+    ("utils.io", ["utils.io"]),
+    ("utils.colormap", ["utils.colormap"]),
+    ("utils.timer", ["utils.timer"]),
+    ("utils.roofline", ["utils.roofline"]),
+    ("utils.honest_timing", ["utils.honest_timing"]),
+    ("utils.profiling", ["utils.profiling"]),
+    ("utils.ply_io", ["utils.ply_io"]),
+    ("native", ["native"]),
+    ("viz.interactive", ["viz.interactive"]),
+    ("viz.offline", ["viz.offline"]),
+    ("viz.live", ["viz.live"]),
 ]
 
-# Names a later slice ports (ROADMAP.md Queue 1): PLY files (Slice G2, with
-# utils/ply_io), the sharded BA (Slice H).
+# Names a later slice ports (ROADMAP.md Queue 1): the sharded BA (Slice H).
 LATER = {
-    "core.containers": {"PointCloud.to_ply", "PointCloud.from_ply"},
     "slam.bundle_adjustment": {"bundle_adjust_sharded"},
 }
 # The Pallas calls themselves: their counterparts are the kernel wrappers,
@@ -173,10 +182,8 @@ def test_slam_package_exports():
         assert name in tnames, name
 
 
-# The packages whose ``__init__`` re-exports JAX's names. The Slice G2 names
-# are members (``PointCloud.to_ply`` / ``from_ply``, in ``LATER``), not
-# package names, so none is left out here.
-PACKAGES = ("core", "neighbors", "correspondence", "clustering", "model_estimation", "spatial")
+# The packages whose ``__init__`` re-exports JAX's names.
+PACKAGES = ("core", "neighbors", "correspondence", "clustering", "model_estimation", "spatial", "utils", "viz")
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
@@ -187,7 +194,7 @@ def test_package_reexports(pkg):
     jpkg = importlib.import_module(f"cilantro_tpu.{pkg}")
     tpkg = importlib.import_module(f"cilantro_tpu_torch.{pkg}")
     jnames = {n for n in vars(jpkg) if not n.startswith("_") and callable(getattr(jpkg, n))}
-    jnames |= {n for n in ("pair_evaluators",) if hasattr(jpkg, n)}
+    jnames |= {n for n in ("pair_evaluators", "profiling") if hasattr(jpkg, n)}
     missing = jnames - set(vars(tpkg))
     assert not missing, sorted(missing)
     for name in jnames:

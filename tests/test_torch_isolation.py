@@ -15,15 +15,25 @@ REPO = Path(__file__).resolve().parents[1]
 _PROBE = """
 import pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises
+sys.modules["cilantro_tpu"] = None  # and any import of the JAX package
 import cilantro_tpu_torch
+walked = []
 for mod in pkgutil.walk_packages(cilantro_tpu_torch.__path__, "cilantro_tpu_torch."):
     __import__(mod.name)
+    walked.append(mod.name)
 loaded = sorted(
     name for name, mod in sys.modules.items()
     if mod is not None and (name.split(".")[0] in ("jax", "jaxlib", "cilantro_tpu"))
 )
 print("LOADED", loaded)
+print("WALKED", " ".join(walked))
 """
+
+# The modules of Slice G2, each of which the probe must import.
+G2_MODULES = (
+    "native", "utils.io", "utils.colormap", "utils.timer", "utils.roofline", "utils.honest_timing",
+    "utils.profiling", "utils.ply_io", "viz", "viz.interactive", "viz.offline", "viz.live",
+)
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -33,6 +43,9 @@ def test_import_loads_no_jax_and_no_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+    walked = set(out.stdout.split("WALKED", 1)[1].split())
+    missing = {f"cilantro_tpu_torch.{m}" for m in G2_MODULES} - walked
+    assert not missing, sorted(missing)
 
 
 def test_cuda_default_raises_without_cuda(monkeypatch):
@@ -200,7 +213,7 @@ def test_estimation_entry_points_raise_without_cuda(monkeypatch):
     the card for numpy input: without CUDA they raise, and run on the CPU
     only when asked or when handed CPU tensors."""
     from cilantro_tpu_torch import clustering, model_estimation, spatial
-    from cilantro_tpu_torch.utils import mds
+    from cilantro_tpu_torch.utils import mds  # the function the package re-exports
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pts = np.random.default_rng(0).random((64, 3)).astype(np.float32)
@@ -212,7 +225,7 @@ def test_estimation_entry_points_raise_without_cuda(monkeypatch):
         "mean_shift": lambda **kw: clustering.mean_shift(pts, 0.5, **kw),
         "spectral_clustering": lambda **kw: clustering.spectral_clustering(None, np.eye(12, dtype=np.float32),
                                                                            2, **kw),
-        "mds": lambda **kw: mds.mds(np.eye(5, dtype=np.float32), 2, **kw),
+        "mds": lambda **kw: mds(np.eye(5, dtype=np.float32), 2, **kw),
         "contains": lambda **kw: spatial.ConvexPolytope.from_points(pts[:8]).contains(pts, **kw),
     }
     for name, call in calls.items():
@@ -225,3 +238,30 @@ def test_estimation_entry_points_raise_without_cuda(monkeypatch):
         assert tensor.device.type == "cpu", name
     res = clustering.kmeans(torch.Generator(), torch.as_tensor(pts), 2)
     assert res.labels.device.type == "cpu"
+
+
+def test_g2_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """PLY loading, colour maps of host arrays and the camera of a host
+    cloud default to the card: without CUDA they raise, and run on the CPU
+    when asked or when handed CPU tensors."""
+    from cilantro_tpu_torch.core.containers import PointCloud
+    from cilantro_tpu_torch.utils import colormap_jet, write_point_cloud
+    from cilantro_tpu_torch.viz import auto_camera, render_cloud_image
+
+    pts = np.random.default_rng(0).random((64, 3)).astype(np.float32) + [0, 0, 2]
+    path = str(tmp_path / "c.ply")
+    write_point_cloud(path, pts)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "from_ply": lambda **kw: PointCloud.from_ply(path, **kw).points,
+        "colormap": lambda **kw: colormap_jet(pts[:, 2], **kw),
+        "auto_camera": lambda **kw: auto_camera(pts, **kw).linear,
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        assert call(device="cpu").device.type == "cpu", name
+    cloud = PointCloud.from_ply(path, device="cpu")
+    assert render_cloud_image(cloud, h=12, w=16).shape == (12, 16, 3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_cloud_image(cloud, h=12, w=16, device="cuda")

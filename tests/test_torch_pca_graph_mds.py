@@ -26,9 +26,10 @@ from cilantro_tpu_torch import interop
 from cilantro_tpu_torch.core import pair_evaluators as tpe
 from cilantro_tpu_torch.core import pca as tpca
 from cilantro_tpu_torch.utils import graph as tg
-from cilantro_tpu_torch.utils import mds as tmds
 
-jmds = importlib.import_module("cilantro_tpu.utils.mds")  # the package's `mds` is the function
+# Each package's ``utils.mds`` re-exports the function ``mds`` over the module.
+jmds = importlib.import_module("cilantro_tpu.utils.mds")
+tmds = importlib.import_module("cilantro_tpu_torch.utils.mds")
 
 
 def _cloud(seed, n=500, d=3):
