@@ -272,6 +272,34 @@ in order; any failure raises and exits non-zero without the final line:
     median, and its ``roofline`` line (on standard error); the snapshots'
     host ms.
 
+35. the multi-device paths at world size 1 over NCCL on the card
+    (``make_mesh()`` with no process group makes a world of one), each
+    against its one-device counterpart and each kernel it launched held
+    bit for bit on its last call at each input shape (the fused nn1
+    kernel's plain version at 307,200² timed on the compared run only):
+    ``sharded_combined_icp`` and ``sharded_combined_icp_ring`` on phase 6's
+    pair (phase 6's bounds against the true motion; a fused nn1 and a
+    rotation launch an iteration), ``sharded_fusion_step`` over 6 frames
+    with a pool of 4·H·W = 1,228,800 slots and stride-2 localize (poses
+    within 5e-5 of ``fusion_step``'s, live rows within 0.1%; host and
+    CUDA-event ms a frame of both, and of one frame's collectives alone),
+    ``sharded_icp_warp_field`` on phase 23's height field with CG (warped
+    points within 1e-4 m median of ``icp_warp_field``'s),
+    ``bundle_adjust_sharded`` at phase 27's scale (residual below 3.0, two
+    solves the same bits, within 1e-4 of ``bundle_adjust``) and
+    ``run_slam`` with ``SlamConfig.ba_mesh`` at phase 26's row under its
+    bounds;
+36. ``PARALLEL_RANKS`` gloo ranks on the one card, as subprocesses of
+    this script (``--rank``), on the same paths (not ``run_slam``, whose
+    front end every rank would repeat) and the two-rank pipeline on
+    phase 10's 16 frames: each rank's results within the CPU tests'
+    tolerances of phase 35's (the ICPs within 1e-5 with the same
+    iterations, the warp 1e-4 m median, the BA 1e-4; fusion on two map
+    shards deals augments to other slots, so phase 35's bounds against
+    the one-device step), the pipeline bit for bit the scanned driver,
+    every replicated output the same on both ranks; host and CUDA-event
+    ms of each. Then a ``{"parallel_paths": ...}`` line.
+
 Before phase 23 one empty launch (``torch.cuda._sleep(0)``) is timed as in
 phase 2, beside the gather's ICP-stream time and bound (informational).
 
@@ -288,7 +316,9 @@ the ``slam_paths`` line on phases 26-27 (by stage; the scanned front end's
 wrappers run at its warm-up step and its capture, and the line gives its
 launches a replay beside them), the ``batched_paths`` line on phases
 28-29 (launches a replay, and those counted over the run), the
-``g2_paths`` line on phases 33-34, the
+``g2_paths`` line on phases 33-34, the ``parallel_paths`` line on
+phases 35-36 (and each kernels-line entry of rows 4, 5, 7 and the
+rotation kernel its ``sharded_launches`` on each phase 35 path), the
 ``estimation_paths`` line on phases 30-32 (by path; each kernel of phases
 30-31 held bit for bit against its plain version on the inputs of its
 last call on each path at each input shape and ``k``, and timed beside
@@ -2132,13 +2162,17 @@ def _real_rows(qp, kp):
     return int((qp[:, 4] == 1).sum()), int(((kp[:, 3] == 1) & (kp[:, 4] < 1e37)).sum())
 
 
-def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel_vs_plain") -> dict:
+def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel_vs_plain",
+                       quick_pairs=None) -> dict:
     """Each kernel that ``path`` launched, bit for bit against its plain
     version on the inputs of its last call on it, timed as in phase 2
     (plain versions by the host clock, median of 3: some read back)
     beside its bound: the nn1 count of operations a visited pair (the
     whole query × key product for the full kernels, the live tile pairs
-    for the listed ones), bytes for the gather and the rotation."""
+    for the listed ones), bytes for the gather and the rotation. A call of
+    ``quick_pairs`` pairs or more has its plain version timed on the one
+    run that is compared, and no library yardstick (the fused nn1 plain
+    version takes ~7 s at 307,200²; phase 31 times both at that shape)."""
     from cilantro_tpu_torch.core import coalesced as cg
     from cilantro_tpu_torch.core import transforms as tfm
     from cilantro_tpu_torch.neighbors import fused_knn as fk
@@ -2219,8 +2253,16 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
                          library_is="torch.index_select of the clamped indices (a yardstick)")
         else:
             raise AssertionError(f"{path}: no check for kernel {name}")
-        k_out, p_out = kernel(), plain()
+        quick = quick_pairs is not None and pairs is not None and pairs >= quick_pairs
+        k_out = kernel()
         torch.cuda.synchronize()
+        t_plain = time.perf_counter()
+        p_out = plain()
+        torch.cuda.synchronize()
+        plain_once_ms = (time.perf_counter() - t_plain) * 1e3
+        if quick:
+            library = None
+            extra["library_is"] = "not timed here: phase 31 times the yardstick at this shape"
         if isinstance(k_out, torch.Tensor):
             k_out, p_out = (k_out,), (p_out,)
         assert_same_bits(f"{name} ({path})", k_out, p_out)
@@ -2233,12 +2275,13 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
         entry = dict(
             name=name, route="cuda", source=KERNEL_SOURCES[name], replaces=REPLACES[name],
             launches=launches[name], max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)),
-            ms=device_ms(kernel), plain_ms=host_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+            ms=device_ms(kernel), plain_ms=plain_once_ms if quick else host_ms(plain), bound_ms=bound_ms,
+            bound_by=bound_by,
             library_ms=None if library is None else once_ms(library, 3) if name == "nn1_fused" else device_ms(library),
             pairs=pairs, bytes=nbytes,
         )
         emit(phase=phase, path=path, tolerance="bit-exact",
-             plain_timer="host clock, median of 3", **entry, **extra)
+             plain_timer="host clock, the compared run" if quick else "host clock, median of 3", **entry, **extra)
         out[name] = entry
     return out
 
@@ -3609,6 +3652,490 @@ def viz_path(depths, k, streams, card):
             "held_bit_exact": sorted(held)}
 
 
+# ---------------------------------------------------------------------------
+# The multi-device paths (phases 35-36).
+# ---------------------------------------------------------------------------
+
+# The sharded fusion module imports the gather by name.
+PARALLEL_WRAPPERS = KERNEL_WRAPPERS + (
+    ("coalesced_gather", "cilantro_tpu_torch.parallel.sharded_fusion", "coalesced_gather"),
+)
+PARALLEL_KERNELS = ("coalesced_gather", "nn1_fused", "nn1_masked", "nn1_compact", "project_to_rotation")
+# tests/test_sharded_scale.py's pool-to-frame ratio at 640x480: 1,228,800
+# slots (78.6 MB), 6 frames, stride-2 localize.
+SHARDED_CAPACITY, SHARDED_FRAMES = 4 * H * W, 6
+SHARDED_ICP_KW = dict(max_iterations=15)  # the entry points' defaults otherwise (1 cm gate)
+SHARDED_ICP_BOUND = (5e-4, 1e-4)  # m, rad from the true motion: phase 6's bounds
+PARALLEL_RANKS = 2
+RANK_GROUP_TIMEOUT_S, RANK_WAIT_S = 180, 480
+QUICK_PAIRS = 1 << 34  # nn1_fused calls past this: plain timed on the compared run
+
+
+def by_site(name, args, kwargs):
+    """One kept call a kernel and first input's shape: the gather's sites
+    (pool rows, ICP targets) apart."""
+    return (name, tuple(args[0].shape))
+
+
+def counted_run(fn):
+    """``fn()`` with every count at 0 before it and each kernel's last call
+    at each input shape kept: ``(out, launches, kept)``."""
+    reset_all_counts()
+    kept = {}
+    with last_kernel_calls(kept, PARALLEL_WRAPPERS, key=by_site):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {k_: v for k_, v in all_counts().items() if v}, kept
+
+
+def hold_path(label, launches, kept, held: dict, sharded_launches: dict):
+    """Each kernel of a sharded path bit for bit against its plain version
+    on its last call at each input shape there (:func:`warp_kernel_checks`),
+    its launches added to ``sharded_launches[kernel][label]``."""
+    for (name, shape), call in kept.items():
+        entries = warp_kernel_checks({name: call}, launches, f"{label}: last call at input shape {list(shape)}",
+                                     phase="parallel_kernel_vs_plain", quick_pairs=QUICK_PAIRS)
+        for e in entries.values():
+            held[f"{label} / {name} {list(shape)}"] = {
+                f: e[f] for f in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    for name, n in launches.items():
+        if name in PARALLEL_KERNELS:
+            sharded_launches.setdefault(name, {})[label] = n
+
+
+def event_ms(fn):
+    """``(host ms, CUDA-event ms)`` of one run of ``fn``, each ended by a
+    synchronise (the events give wall time where ``fn`` reads back)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end), out
+
+
+def tf_numpy(tf):
+    return tf.linear.detach().cpu().numpy(), tf.translation.detach().cpu().numpy()
+
+
+def sharded_icp_runs(mesh, pair):
+    """Both sharded ICPs on phase 6's pair (frame 1 onto frame 0), this
+    rank's shards cut by ``shard_cloud_arrays``: ``{label: (fn, ...)}``."""
+    from cilantro_tpu_torch.parallel import shard_cloud_arrays, sharded_combined_icp, sharded_combined_icp_ring
+
+    (sp, sn, sv), (dp, dn, dv) = pair
+    src = shard_cloud_arrays(mesh, "points", sp, sv)
+    dst = shard_cloud_arrays(mesh, "map", dp, dn, dv)
+    ring = shard_cloud_arrays(mesh, "points", sp, sv, dp, dn, dv)
+    return {
+        "sharded_combined_icp": lambda: sharded_combined_icp(*src, *dst, mesh=mesh, **SHARDED_ICP_KW),
+        "sharded_combined_icp_ring": lambda: sharded_combined_icp_ring(*ring, mesh=mesh, **SHARDED_ICP_KW),
+    }
+
+
+def sharded_fusion_frames(mesh, frames, k, timed=True):
+    """Phase 35b / 36's sharded fusion: this rank's pool shard seeded from
+    frame 0, then ``sharded_fusion_step`` on each later frame. Returns the
+    poses, the final shard, the live rows of the whole pool, each frame's
+    winner image and each frame's host / CUDA-event ms."""
+    from cilantro_tpu_torch.core.transforms import identity
+    from cilantro_tpu_torch.parallel import collectives as cc
+    from cilantro_tpu_torch.parallel import init_sharded_map, sharded_fusion_step
+    from cilantro_tpu_torch.slam.fusion import FusionConfig, _valid_col
+
+    cfg = FusionConfig(localize_stride=2)
+    p0, n0, v0 = frames[0]
+    data = init_sharded_map(mesh, SHARDED_CAPACITY, p0, n0, None, v0)
+    pose = identity(3, device=p0.device)
+    poses, widx_all, host, events = [], [], [], []
+    for p, n, v in frames[1:]:
+        h_ms, e_ms, (data, pose, widx) = event_ms(lambda: sharded_fusion_step(
+            data, p, n, None, v, pose, k, mesh=mesh, height=H, width=W, cfg=cfg))
+        host.append(h_ms)
+        events.append(e_ms)
+        poses.append(pose.matrix().cpu().numpy())
+        widx_all.append(widx)
+    live = int(cc.psum((data[:, _valid_col(data.shape[1])] > 0.5).sum().to(torch.int64).reshape(1), mesh,
+                       "map")[0])
+    return poses, data, live, widx_all, host, events
+
+
+def single_fusion_frames(frames, k):
+    """The port's one-device ``fusion_step`` on the same frames (rendering
+    in localize, as the sharded step does): poses, live rows, ms a frame."""
+    from cilantro_tpu_torch.core.transforms import identity
+    from cilantro_tpu_torch.slam.fusion import FusionConfig, fusion_step, init_map_from_frame
+
+    cfg = FusionConfig(localize_stride=2)
+    p0, n0, v0 = frames[0]
+    fmap = init_map_from_frame(SHARDED_CAPACITY, p0, n0, None, v0)
+    pose = identity(3, device=p0.device)
+    poses, host, events = [], [], []
+    for p, n, v in frames[1:]:
+        h_ms, e_ms, (fmap, pose, _, _, _) = event_ms(lambda: fusion_step(
+            fmap, p, n, None, v, pose, k, height=H, width=W, cfg=cfg))
+        host.append(h_ms)
+        events.append(e_ms)
+        poses.append(pose.matrix().cpu().numpy())
+    return poses, int(fmap.num_points()), host, events
+
+
+def warp_problem(dev):
+    """Phase 23's height field (120,000 points, the bend) and its 1,040-node
+    graph (capacity 1,056), built on ``dev``."""
+    from cilantro_tpu_torch.registration import warp_field as tw
+
+    src, dst, _ = warp_inputs()
+    src_t, dst_t = torch.as_tensor(src, device=dev), torch.as_tensor(dst, device=dev)
+    nodes, node_valid = warp_control_nodes(src_t)
+    graph = tw.build_deformation_graph(src_t, nodes, node_valid=node_valid, k_anchors=4, k_arcs=8, device=dev)
+    return graph, src_t, dst_t
+
+
+SHARDED_WARP_KW = dict(WARP_KW, max_cg_iterations=WARP_MAX_CG, solver="cg")
+
+
+def sharded_ba_args(mesh):
+    """Phase 27's mapping-scale problem partitioned by landmark as
+    ``tests/test_slam_backend.py::test_sharded_matches`` does (the
+    observations sorted by shard, local landmark ids), each shard's block
+    padded to the largest with invalid observations (the landmarks are
+    drawn at random, so the blocks differ in length; ``run_slam`` pads the
+    same way), this rank's shards: ``(poses, landmarks, cam, local lmk,
+    obs, valid)``. On one rank nothing is padded or moved."""
+    from cilantro_tpu_torch import interop
+    from cilantro_tpu_torch.parallel import shard_cloud_arrays
+    from cilantro_tpu_torch.parallel import collectives as cc
+    from cilantro_tpu_torch.tools.slam_problems import mapping_ba_problem
+
+    r, t, lmk0, cam, lmk, obs = mapping_ba_problem(BA_K, BA_L, BA_O)
+    shards = cc.axis_size(mesh, "points")
+    lp = BA_L // shards
+    blocks = [np.flatnonzero(lmk // lp == d) for d in range(shards)]
+    width = max(len(b) for b in blocks)
+    order = np.concatenate([np.concatenate([b, np.zeros(width - len(b), np.int64)]) for b in blocks])
+    valid = np.concatenate([np.arange(width) < len(b) for b in blocks])
+    poses = interop.transform_from_numpy(r, t, device=torch.device("cuda"))
+    return (poses,) + shard_cloud_arrays(mesh, "points", lmk0, np.where(valid, cam[order], 0).astype(np.int32),
+                                         np.where(valid, lmk[order] % lp, 0).astype(np.int32),
+                                         np.where(valid[:, None], obs[order], 0.0).astype(np.float32), valid)
+
+
+def world_one_paths(depths, gt, k, pair, rel, card):
+    """Phase 35: every sharded entry point at world size 1 over NCCL on the
+    card, at full width, each against its one-device counterpart, each
+    kernel held bit for bit on its last call there. Returns the paths line
+    entries, the held kernels, the launches by kernel and path, and the
+    results phase 36 is held to."""
+    import torch.distributed as dist
+
+    from cilantro_tpu_torch import slam as tslam
+    from cilantro_tpu_torch.parallel import collectives as cc
+    from cilantro_tpu_torch.parallel import make_mesh, process_info, sharded_icp_warp_field
+    from cilantro_tpu_torch.registration import warp_field as tw
+    from cilantro_tpu_torch.slam import bundle_adjustment as tba
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    mesh = make_mesh(device="cuda")
+    if dist.get_backend() != "nccl" or mesh.size() != 1:
+        raise AssertionError(f"world of one: backend {dist.get_backend()}, mesh {mesh}")
+    emit(phase="parallel_world_one", mesh=str(mesh), backend=dist.get_backend(),
+         nccl=".".join(map(str, torch.cuda.nccl.version())), process_info=process_info(), card=card)
+    paths, held, sharded_launches, ref = [], {}, {}, {}
+
+    # 35a. Both sharded ICPs on phase 6's pair.
+    for label, fn in sharded_icp_runs(mesh, pair).items():
+        (tf, it), launches, kept = counted_run(fn)
+        h_ms, e_ms, _ = event_ms(fn)
+        lin, tr = tf_numpy(tf)
+        dt, dr = gt_error(tf.linear, tf.translation, rel)
+        err = {"translation_m": dt, "rotation_rad": dr}
+        if not (dt < SHARDED_ICP_BOUND[0] and dr < SHARDED_ICP_BOUND[1]):
+            raise AssertionError(f"{label}: {err} from the true motion")
+        if not (launches.get("nn1_fused") == int(it) and launches.get("project_to_rotation") == int(it)):
+            raise AssertionError(f"{label}: launches {launches} for {int(it)} iterations")
+        emit(phase="parallel_icp", entry=label, world=1, backend="nccl", iterations=int(it), error=err,
+             host_ms=h_ms, events_ms=e_ms, launches=launches, card=card)
+        ref[label] = (lin, tr, int(it))
+        hold_path(f"35 {label}", launches, kept, held, sharded_launches)
+        paths.append({"phase": 35, "path": f"{label}, 640x480 pair, world 1 (NCCL)", "launches": launches})
+
+    # 35b. Sharded fusion against the one-device step.
+    frames = [frame_clouds(d, k, dev) for d in depths[:SHARDED_FRAMES]]
+    (poses, data, live, widx, host, events), launches, kept = counted_run(
+        lambda: sharded_fusion_frames(mesh, frames, k))
+    s_poses, s_live, s_host, s_events = single_fusion_frames(frames, k)
+    dpose = max(float(np.abs(a - b).max()) for a, b in zip(poses, s_poses))
+    if not (dpose < 5e-5 and abs(live - s_live) <= 1e-3 * s_live):
+        raise AssertionError(f"sharded fusion: poses {dpose} apart, live rows {live} vs {s_live}")
+    if not (launches.get("coalesced_gather") and launches.get("project_to_rotation")):
+        raise AssertionError(f"sharded fusion launches {launches}")
+    coll = collective_cost(mesh)
+    emit(phase="parallel_fusion", entry="sharded_fusion_step", world=1, backend="nccl", frames=SHARDED_FRAMES,
+         capacity=SHARDED_CAPACITY, pool_mb=SHARDED_CAPACITY * 16 * 4 / 1e6, localize_stride=2,
+         max_pose_diff_vs_fusion_step=dpose, live_rows=live, live_rows_fusion_step=s_live,
+         host_ms_per_frame=host, events_ms_per_frame=events, fusion_step_host_ms_per_frame=s_host,
+         fusion_step_events_ms_per_frame=s_events,
+         median_host_ms={"sharded": statistics.median(host[1:]), "fusion_step": statistics.median(s_host[1:])},
+         median_events_ms={"sharded": statistics.median(events[1:]),
+                           "fusion_step": statistics.median(s_events[1:])},
+         collectives_ms_per_frame=coll, launches=launches, card=card)
+    ref["fusion"] = (poses, live)
+    hold_path("35 sharded_fusion_step", launches, kept, held, sharded_launches)
+    paths.append({"phase": 35, "path": f"sharded_fusion_step, {SHARDED_FRAMES} frames 640x480, world 1",
+                  "launches": launches})
+    del data, frames
+
+    # 35c. The sharded warp against the one-device CG solve.
+    graph, src_t, dst_t = warp_problem(dev)
+    (tf, it, _), launches, kept = counted_run(
+        lambda: sharded_icp_warp_field(graph, src_t, dst_t, mesh=mesh, **SHARDED_WARP_KW))
+    h_ms, e_ms, _ = event_ms(lambda: sharded_icp_warp_field(graph, src_t, dst_t, mesh=mesh, **SHARDED_WARP_KW))
+    sh_ms, se_ms, (tf1, it1, _) = event_ms(lambda: tw.icp_warp_field(graph, src_t, dst_t, device=dev,
+                                                                   **SHARDED_WARP_KW))
+    warped = tw.warp_points(graph, tf, src_t, device=dev)
+    diff = torch.linalg.vector_norm(warped - tw.warp_points(graph, tf1, src_t, device=dev), dim=1)
+    med = float(diff.median())
+    if not med < 1e-4:
+        raise AssertionError(f"sharded warp: warped points {med} m (median) from the one-device solve")
+    emit(phase="parallel_warp", entry="sharded_icp_warp_field", world=1, backend="nccl", points=WARP_POINTS,
+         nodes=graph.num_nodes, solver="cg", iterations=int(it), iterations_one_device=int(it1),
+         median_diff_m=med, max_diff_m=float(diff.max()), errors=warp_errors(warped.cpu().numpy(), dst_t.cpu().numpy()),
+         host_ms=h_ms, events_ms=e_ms, one_device_host_ms=sh_ms, one_device_events_ms=se_ms,
+         launches=launches, card=card)
+    ref["warp"] = warped.cpu().numpy()
+    hold_path("35 sharded_icp_warp_field", launches, kept, held, sharded_launches)
+    paths.append({"phase": 35, "path": "sharded_icp_warp_field, 120,000 points, CG, world 1", "launches": launches})
+    del graph
+
+    # 35d. The landmark-sharded BA at mapping scale.
+    args = sharded_ba_args(mesh)
+
+    def solve():
+        return tslam.bundle_adjust_sharded(*args, mesh=mesh, max_iterations=3, max_cg=30)
+
+    (p1, l1, r1), launches, kept = counted_run(solve)
+    h_ms, e_ms, (p2, l2, r2) = event_ms(solve)
+    same = all(torch.equal(a, b) for a, b in ((p1.linear, p2.linear), (p1.translation, p2.translation),
+                                              (l1, l2), (r1, r2)))
+    full = (args[0], args[1], args[2], args[3], args[4])
+    sh_ms, se_ms, (q, _, rq) = event_ms(lambda: tba.bundle_adjust(*full, max_iterations=3, max_cg=30,
+                                                                   device=dev))
+    dp = float(torch.abs(p1.linear - q.linear).max().maximum(torch.abs(p1.translation - q.translation).max()))
+    if not (same and float(r1) < 3.0 and dp < 1e-4):
+        raise AssertionError(f"sharded BA: same bits {same}, residual {float(r1)}, {dp} from bundle_adjust")
+    emit(phase="parallel_ba", entry="bundle_adjust_sharded", world=1, backend="nccl", k=BA_K, l=BA_L, o=BA_O,
+         residual=float(r1), residual_one_device=float(rq), max_pose_diff=dp, two_solves_same_bits=same,
+         host_ms=h_ms, events_ms=e_ms, one_device_host_ms=sh_ms, one_device_events_ms=se_ms,
+         launches=launches, card=card)
+    ref["ba"] = tf_numpy(p1)
+    hold_path("35 bundle_adjust_sharded", launches, kept, held, sharded_launches)
+    paths.append({"phase": 35, "path": "bundle_adjust_sharded, K = 64, L = 100,000, O = 300,000, world 1",
+                  "launches": launches})
+    del args
+
+    # 35e. run_slam with the BA sharded, at phase 26's row.
+    sk = slam_intrinsics(SLAM_H, SLAM_W)
+    sdepths, sgt = tslam.synthetic_panorama_sequence(SLAM_FRAMES, SLAM_H, SLAM_W, sk, seed=3, depth_noise=0.008)
+    cfg = tslam.SlamConfig(run_ba=True, ba_mesh=mesh, **SLAM_KW)
+    (fmap, res), launches, _ = counted_run(lambda: tslam.run_slam(
+        sdepths, sk, map_capacity=8 * SLAM_H * SLAM_W, cfg=tslam.FusionConfig(localize_stride=1, icp_iterations=8),
+        slam=cfg, frontend="scanned", device="cuda"))
+    odo, refd = res.odometry_poses, res.refined_poses
+    yaw = [max(rot_err_deg(p, g) for p, g in zip(ps, sgt)) for ps in (odo, refd)]
+    end = [rot_err_deg(ps[-1], sgt[-1]) for ps in (odo, refd)]
+    ate = [tslam.ate_rmse(ps, sgt, device="cuda") for ps in (odo, refd)]
+    pts = fmap.points[fmap.valid].cpu().numpy()
+    on_wall = float((np.abs(np.linalg.norm(pts[:, [0, 2]], axis=1) - 2.5) < 0.7).mean())
+    ok = (res.num_loop_closures >= 1 and yaw[0] > 1.0 and yaw[1] < 0.65 * yaw[0] and end[1] < 0.65 * end[0]
+          and len(pts) > SLAM_H * SLAM_W and on_wall > 0.95
+          and abs(ate[1] / ate[0] - SLAM_JAX_BA_ATE_RATIO) <= SLAM_ATE_RATIO_TOL)
+    emit(phase="parallel_slam", entry="run_slam", ba_mesh="world 1 (NCCL)", loop_closures=res.num_loop_closures,
+         max_orientation_error_deg=yaw, endpoint_orientation_error_deg=end, ate_m=ate, ate_ratio=ate[1] / ate[0],
+         map_points=len(pts), on_wall_share=on_wall, launches=launches, card=card)
+    if not ok:
+        raise AssertionError(f"run_slam with ba_mesh: loops {res.num_loop_closures}, {yaw}, {end}, ATE {ate}")
+    paths.append({"phase": 35, "path": "run_slam(run_ba=True, ba_mesh=world 1), phase 26's row", "launches": launches})
+    for name, n in launches.items():
+        if name in PARALLEL_KERNELS:
+            sharded_launches.setdefault(name, {})["35 run_slam(ba_mesh)"] = n
+    dist.destroy_process_group()
+    emit(phase="parallel_world_one_done", phase_s=time.perf_counter() - t_phase)
+    return paths, held, sharded_launches, ref
+
+
+def collective_cost(mesh):
+    """CUDA-event ms of one frame's collectives of ``sharded_fusion_step``
+    alone (4 MIN all-reduces of H·W values, 2 sums of the (H·W, 16) image)
+    on ``mesh``'s ``map`` group, median of 25 after a warm-up."""
+    from cilantro_tpu_torch.parallel import collectives as cc
+
+    dev = torch.device("cuda")
+    d = torch.rand(H * W, device=dev)
+    i = torch.randint(0, 1 << 20, (H * W,), device=dev, dtype=torch.int32)
+    img = torch.rand(H * W, 16, device=dev)
+
+    def frame():
+        for _ in range(2):
+            cc.pmin(d, mesh, "map")
+            cc.pmin(i, mesh, "map")
+            cc.psum(img, mesh, "map")
+
+    return device_ms(frame)
+
+
+def rank_main(argv) -> int:
+    """Phase 36's rank: ``python3 chip_smoke.py --rank RANK WORLD STORE OUT``.
+    One of ``PARALLEL_RANKS`` gloo ranks on the one card: the sharded paths
+    on its shards, results saved to ``OUT/rank<RANK>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    rank, world, store, out_dir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(0)
+    timeout = datetime.timedelta(seconds=RANK_GROUP_TIMEOUT_S)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world, timeout=timeout)
+    from cilantro_tpu_torch import slam as tslam
+    from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
+    from cilantro_tpu_torch.parallel import make_mesh, sharded_icp_warp_field
+    from cilantro_tpu_torch.registration import warp_field as tw
+
+    dev = torch.device("cuda")
+    k = CameraIntrinsics.kinect_640()
+    depths = np.load(os.path.join(out_dir, "depths.npy"))
+    out, t0 = {"rank": rank}, time.perf_counter()
+    pair = (frame_clouds(depths[1], k, dev), frame_clouds(depths[0], k, dev))
+    for label, (p, q) in (("sharded_combined_icp", (1, world)), ("sharded_combined_icp_ring", (world, 1))):
+        mesh = make_mesh(p, q, device="cuda", timeout=timeout)
+        fn = sharded_icp_runs(mesh, pair)[label]
+        fn()
+        h_ms, e_ms, (tf, it) = event_ms(fn)
+        out[label] = dict(zip(("linear", "translation"), tf_numpy(tf)), iterations=int(it), host_ms=h_ms,
+                          events_ms=e_ms, mesh=[p, q])
+    mesh = make_mesh(1, world, device="cuda", timeout=timeout)
+    frames = [frame_clouds(d, k, dev) for d in depths[:SHARDED_FRAMES]]
+    poses, _, live, widx, host, events = sharded_fusion_frames(mesh, frames, k)
+    out["fusion"] = dict(poses=np.stack(poses), live=live, widx=widx[-1].cpu().numpy(), host_ms=host,
+                         events_ms=events)
+    del frames
+    mesh = make_mesh(world, 1, device="cuda", timeout=timeout)
+    graph, src_t, dst_t = warp_problem(dev)
+    h_ms, e_ms, (tf, it, _) = event_ms(lambda: sharded_icp_warp_field(graph, src_t, dst_t, mesh=mesh,
+                                                                     **SHARDED_WARP_KW))
+    warped = tw.warp_points(graph, tf, src_t, device=dev)
+    out["warp"] = dict(warped=warped.cpu().numpy(), iterations=int(it), host_ms=h_ms, events_ms=e_ms,
+                       nonfinite_nodes=int((~torch.isfinite(tf.linear)).sum() + (~torch.isfinite(tf.translation)).sum()),
+                       nonfinite_points=int((~torch.isfinite(warped)).any(dim=1).sum()))
+    del graph
+    args = sharded_ba_args(mesh)
+    h_ms, e_ms, (p, _, r) = event_ms(lambda: tslam.bundle_adjust_sharded(*args, mesh=mesh, max_iterations=3,
+                                                                        max_cg=30))
+    out["ba"] = dict(zip(("linear", "translation"), tf_numpy(p)), residual=float(r), host_ms=h_ms, events_ms=e_ms)
+    del args
+    pipe = tslam.make_pipeline_mesh()
+    stats = {}
+    fmap, met = tslam.run_fusion_sequence_pipelined(list(depths), k, mesh=pipe, map_capacity=POOL_CAPACITY,
+                                                    cfg=pool_config(), device="cuda", stats=stats)
+    out["pipeline"] = dict(poses=np.stack(met.poses), iterations=met.icp_iterations,
+                           data=fmap.data.cpu().numpy(), stage_s=stats["stage_seconds"],
+                           ms_per_frame=met.seconds_per_frame * 1e3)
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "seconds": out["seconds"]}), flush=True)
+    return 0
+
+
+def two_rank_paths(depths, k, ref, card):
+    """Phase 36: ``PARALLEL_RANKS`` gloo ranks on the one card, as
+    subprocesses of this script, run phase 35's sharded paths on their
+    shards (the same 640x480 ICP pair, 6 fusion frames, the warp, the BA;
+    not ``run_slam``, whose front end every rank would repeat) and the
+    two-rank pipeline on phase 10's 16 frames. Each rank's results are held
+    to phase 35's within the CPU tests' tolerances, the pipeline to the
+    scanned driver bit for bit, and the ranks to each other bit for bit."""
+    import tempfile
+
+    from cilantro_tpu_torch.slam.driver import run_fusion_sequence_scanned
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ranks_", dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        np.save(os.path.join(tmp, "depths.npy"), np.stack(depths).astype(np.float32))
+        cmd = [sys.executable, os.path.abspath(__file__), "--rank"]
+        procs = [subprocess.Popen(cmd + [str(r), str(PARALLEL_RANKS), os.path.join(tmp, "store"), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(PARALLEL_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                left = max(1.0, RANK_WAIT_S - (time.perf_counter() - t_phase))
+                logs.append(p.communicate(timeout=left)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"phase 36 rank {r} exited {p.returncode}:\n{log[-3000:]}")
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(PARALLEL_RANKS)]
+    fs, ms = run_fusion_sequence_scanned(depths, k, map_capacity=POOL_CAPACITY, cfg=pool_config(), device="cuda")
+    checks = {}
+    r0 = res[0]
+    for label in ("sharded_combined_icp", "sharded_combined_icp_ring"):
+        lin, tr, it = ref[label]
+        checks[label] = max(float(np.abs(r0[label]["linear"] - lin).max()),
+                            float(np.abs(r0[label]["translation"] - tr).max()))
+        if not (checks[label] < 1e-5 and r0[label]["iterations"] == it):
+            raise AssertionError(f"phase 36 {label}: {checks[label]} from phase 35, {r0[label]['iterations']} "
+                                 f"iterations against {it}")
+    poses, live = ref["fusion"]
+    checks["fusion_pose"] = float(np.abs(r0["fusion"]["poses"] - np.stack(poses)).max())
+    checks["fusion_live"] = abs(r0["fusion"]["live"] - live) / live
+    checks["warp_median_m"] = float(np.median(np.linalg.norm(r0["warp"]["warped"] - ref["warp"], axis=1)))
+    lin, tr = ref["ba"]
+    checks["ba"] = max(float(np.abs(r0["ba"]["linear"] - lin).max()), float(np.abs(r0["ba"]["translation"] - tr).max()))
+    pipe_same = (np.array_equal(r0["pipeline"]["poses"], np.stack(ms.poses))
+                 and r0["pipeline"]["iterations"] == ms.icp_iterations
+                 and np.array_equal(r0["pipeline"]["data"], fs.data.cpu().numpy()))
+    replicated = {}
+    for key, fields in (("sharded_combined_icp", ("linear", "translation", "iterations")),
+                        ("sharded_combined_icp_ring", ("linear", "translation", "iterations")),
+                        ("fusion", ("poses", "live", "widx")), ("warp", ("warped", "iterations")),
+                        ("ba", ("linear", "translation", "residual")), ("pipeline", ("poses", "iterations", "data"))):
+        replicated[key] = all(np.array_equal(np.asarray(res[1][key][f]), np.asarray(r0[key][f])) for f in fields)
+    emit(phase="parallel_two_ranks", ranks=PARALLEL_RANKS, backend="gloo", device="one card",
+         differences_from_phase_35=checks, pipeline_bit_identical_to_scanned=pipe_same,
+         warp_nonfinite=[(r["warp"]["nonfinite_nodes"], r["warp"]["nonfinite_points"]) for r in res],
+         warp_iterations=[r["warp"]["iterations"] for r in res],
+         replicated_identical=replicated, rank_seconds=[r["seconds"] for r in res],
+         host_ms={key: [r[key]["host_ms"] for r in res] for key in
+                  ("sharded_combined_icp", "sharded_combined_icp_ring", "warp", "ba")},
+         events_ms={key: [r[key]["events_ms"] for r in res] for key in
+                    ("sharded_combined_icp", "sharded_combined_icp_ring", "warp", "ba")},
+         fusion_host_ms_per_frame=[r["fusion"]["host_ms"] for r in res],
+         fusion_events_ms_per_frame=[r["fusion"]["events_ms"] for r in res],
+         fusion_median_host_ms=[statistics.median(r["fusion"]["host_ms"][1:]) for r in res],
+         fusion_median_events_ms=[statistics.median(r["fusion"]["events_ms"][1:]) for r in res],
+         pipeline_ms_per_frame=[r["pipeline"]["ms_per_frame"] for r in res],
+         pipeline_stage_s=[r["pipeline"]["stage_s"] for r in res],
+         scanned_ms_per_frame=ms.seconds_per_frame * 1e3, phase_s=time.perf_counter() - t_phase, card=card)
+    # Fusion on two map shards deals augments to other slots than on one
+    # (z-buffer ties then go by other rows): phase 35's bounds against the
+    # one-device step.
+    ok = (checks["fusion_pose"] < 5e-5 and checks["fusion_live"] <= 1e-3 and checks["warp_median_m"] < 1e-4
+          and checks["ba"] < 1e-4 and pipe_same and all(replicated.values()))
+    if not ok:
+        raise AssertionError(f"phase 36: {checks}, pipeline bit for bit {pipe_same}, replicated {replicated}")
+    return [{"phase": 36, "path": f"{PARALLEL_RANKS} gloo ranks on one card: ICP (both), fusion, warp, BA, "
+                                  "pipeline", "checks": checks}]
+
+
 KERNEL_SOURCES = {
     "knn_full": "cilantro_tpu_torch/csrc/knn_kernels.cu",
     "knn_compact": "cilantro_tpu_torch/csrc/knn_kernels.cu",
@@ -3843,10 +4370,19 @@ def main() -> int:
     g2_paths = [ply_path(depths, k, rel, card), viz_path(depths, k, streams, card)]
     print(json.dumps({"g2_paths": g2_paths}), flush=True)
 
+    # 35-36. The multi-device paths: world size 1 over NCCL, then two gloo
+    # ranks on the one card.
+    par_paths, par_held, sharded_launches, ref = world_one_paths(depths, gt, k, pair, rel, card)
+    par_paths += two_rank_paths(depths, k, ref, card)
+    print(json.dumps({"parallel_paths": par_paths, "held_bit_exact": par_held}), flush=True)
+
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]
     kernels.append(gather_entry)
     kernels += [knn["knn_full"], knn["knn_compact"], probe, rotation]
+    for entry in kernels:
+        if entry["name"] in sharded_launches:
+            entry["sharded_launches"] = sharded_launches[entry["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3856,4 +4392,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # one of phase 36's ranks
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -15,7 +15,7 @@ it launches the kernel or raises.
 Ported so far (splat fusion, rigid ICP, pool fusion, neighbour engines
 and normals, the scanned drivers, the non-rigid warp, the SLAM backend,
 multi-stream fusion, estimation and clustering, PLY I/O, the utilities
-and visualization; not the multi-device paths):
+and visualization, and the multi-device paths on torch.distributed):
 
 core            ``Transform`` and its ops (the closest rotation through a
                 kernel, ``csrc/rotation_kernels.cu``), ``CameraIntrinsics``, depth →
@@ -41,7 +41,8 @@ slam            the splat kernels (``slam/splat.py``), splat fusion
                 pipelines' scanned drivers, one step captured in a CUDA
                 graph and replayed (``slam/scan.py``), and keyframe SLAM:
                 keyframes and loop closures, the pose graph, single-device
-                Schur bundle adjustment and ``run_slam``
+                Schur bundle adjustment, its landmark-sharded form and
+                ``run_slam``
 model_estimation  batched RANSAC: planes and rigid / affine transforms
 clustering      k-means, mean shift, connected components, spectral
                 clustering (dense and on a kNN graph, with LOBPCG)
@@ -53,12 +54,16 @@ utils           PLY and matrix I/O, nearest-neighbour graph matrices,
 viz             renders through the z-buffer, PNG artefacts (matplotlib,
                 optional), the standalone WebGL viewer and the fusion
                 drivers' live snapshot hook
+parallel        the ``(points, map)`` mesh of ranks on torch.distributed
+                (NCCL, or gloo), sharded and ring ICP, the ring NN,
+                map-sharded fusion, point-sharded warp fields, the
+                runtime entry and the collectives they use
 native          the CUDA kernels' nvcc build, and the host C++ (the PLY
                 codec and the single-core CPU baselines, ``csrc/host/``)
                 built with g++
 interop         build port state (clouds, maps, deformation graphs,
-                keyframe graphs, BA problems) from the JAX package's
-                leaves (numpy)
+                keyframe graphs, BA problems, a rank's shards) from the
+                JAX package's leaves (numpy)
 tools           the wide-row probe and its ``scale2`` kernel
 """
 

@@ -177,3 +177,19 @@ def convex_polytope_from_numpy(**fields) -> ConvexPolytope:
         return np.array(a)
 
     return ConvexPolytope(**{name: copy(value) for name, value in fields.items()})
+
+
+def shard_from_numpy(mesh, axis: str, array) -> torch.Tensor:
+    """This rank's shard of a JAX array sharded over ``axis`` of a
+    ``(points, map)`` mesh, from the global numpy array ``jax.device_get``
+    gives of it (its leading dimension split in mesh order), on the mesh's
+    device: so both packages start a sharded path from the same state."""
+    from .parallel.sharded import shard_rows
+
+    return shard_rows(np.array(array), mesh, axis)
+
+
+def sharded_map_from_numpy(mesh, data, axis: str = "map") -> torch.Tensor:
+    """This rank's ``(C/D, 16)`` shard of a JAX map-sharded pool, from its
+    global ``(C, 16)`` numpy array (``init_sharded_map``'s layout)."""
+    return shard_from_numpy(mesh, axis, np.asarray(data, np.float32))

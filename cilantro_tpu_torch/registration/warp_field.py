@@ -14,6 +14,12 @@ than ``index_add_``: on CUDA the latter adds with atomics, so its bits
 change from run to run, while a segment reduction adds each segment in
 order. Two direct solves of one problem on the card give the same bits.
 
+Point-sharded solves (:mod:`..parallel.sharded_warp`) pass a ``psum``
+hook: every sum from point rows into node slots (the anchor sums of Jᵀv,
+of the preconditioners and of the scatter assembly) is followed by it,
+and the node-aligned state stays whole on every rank. Without a hook
+nothing is reduced and the arithmetic is unchanged.
+
 JAX's ``lax.while_loop`` s are host loops here with one host read an outer
 ICP iteration (and one a GN iteration past the first). One direct GN step
 (:func:`_gn_step`) never waits on the host. The CG solver runs in chunks
@@ -30,7 +36,7 @@ and are moved there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,8 +143,10 @@ class DeformationGraph:
         )
 
     def segment_over_arc_j(self, values: torch.Tensor) -> torch.Tensor:
-        lengths = self.arc_j_lengths if self.caches_sorted else None
-        return _segment_sum(values[self.arc_j_order], self.arc_j_sorted, lengths, self.num_nodes)
+        """Σ over arcs per target node: sorted when ``arc_j_lengths`` is set
+        (:func:`_with_segment_lengths` sets it for sorted caches; a sharded
+        graph keeps its arcs sorted), scattered otherwise."""
+        return _segment_sum(values[self.arc_j_order], self.arc_j_sorted, self.arc_j_lengths, self.num_nodes)
 
     def segment_over_arc_i(self, values: torch.Tensor) -> torch.Tensor:
         """Σ over arcs per source node (``arc_i`` is sorted by construction)."""
@@ -414,6 +422,14 @@ class _Terms:
     normals: Optional[torch.Tensor]  # (N, D) or None
     stiffness: float
     affine: bool
+    # Reduces point-row sums over the ranks that hold the other points (a
+    # sharded solve); None on one device.
+    psum: Optional[Callable] = None
+
+    def reduce(self, node_sums: torch.Tensor) -> torch.Tensor:
+        """``node_sums`` summed from point rows, reduced over the point
+        shards (unchanged on one device)."""
+        return node_sums if self.psum is None else self.psum(node_sums)
 
     @property
     def d(self) -> int:
@@ -469,7 +485,7 @@ class _Terms:
         if self.normals is not None:
             rows = rows + (self.w_pl * v_pl)[:, None] * self.normals
         gk = g.anchor_weights[..., None] * rows[:, None, :]  # (N, K, D)
-        acc = g.segment_over_anchors(torch.cat([self.lin_grad(gk, self.y), gk], dim=-1))
+        acc = self.reduce(g.segment_over_anchors(torch.cat([self.lin_grad(gk, self.y), gk], dim=-1)))
         ga = (self.stiffness * self.w_arc)[:, None] * va
         rows_i = torch.cat([self.lin_grad(ga, self.y_jl), ga], dim=-1)
         rows_j = torch.cat([-self.lin_grad(ga, self.y_ll), -ga], dim=-1)
@@ -482,7 +498,7 @@ class _Terms:
 
 def _linearize(
     graph, node_tf, src_points, dst_points, dst_normals, w_pp, w_pl, *, stiffness, huber_delta,
-    affine,
+    affine, psum=None,
 ) -> _Terms:
     d = src_points.shape[1]
     lin_a, tr_a = _split_packed(_nodes_packed(node_tf)[graph.anchors], d)
@@ -502,7 +518,7 @@ def _linearize(
     return _Terms(
         graph=graph, y=y, y_jl=y_jl, y_ll=y_ll, r_pp0=r_pp0, r_pl0=r_pl0, r_arc0=r_arc0,
         w_arc=w_arc, w_pp=w_pp, w_pl=w_pl, normals=dst_normals, stiffness=stiffness,
-        affine=affine,
+        affine=affine, psum=psum,
     )
 
 
@@ -678,6 +694,8 @@ def _normal_matrix(t: _Terms, levenberg: float) -> torch.Tensor:
     arc_vals = _arc_values(t, g.arc_i, g.arc_j)
     h = t.y.new_zeros((m * p, m * p))
     route = direct_route(g, n, d, t.affine)
+    if t.psum is not None and route != "scatter":
+        raise ValueError("a point-sharded graph takes the scatter assembly (its sort caches are dropped)")
     if route == "sorted":
         nrm = t.normals if t.normals is not None else torch.zeros_like(t.r_pp0)
         ytab = narrow_inputs(t.y, t.w_pp, t.w_pl, nrm)
@@ -694,13 +712,27 @@ def _normal_matrix(t: _Terms, levenberg: float) -> torch.Tensor:
         compact = sorted_sum(vals[g.pair_order], g.pair_seg_lengths)
         write_pair_blocks(h, g, compact, p)
     else:
-        # Unordered scatter-add (graphs without pair caches).
+        # Unordered scatter-add (graphs without pair caches): the point
+        # pairs, reduced over the point shards, then the arcs, each slot's
+        # adds in the order of one scatter of both.
         pair, keys = _pair_blocks(t, n)
         ai, aj = g.arc_i.long(), g.arc_j.long()
         arc_keys = torch.cat([ai * m + ai, aj * m + aj, torch.minimum(ai, aj) * m + torch.maximum(ai, aj)])
-        keys = torch.cat([keys.long(), arc_keys])
-        blocks = _blocks_view(h, m, p)
-        blocks.index_put_((keys // m, keys % m), torch.cat([pair, arc_vals]).view(-1, p, p), accumulate=True)
+        keys = keys.long()
+        _blocks_view(h, m, p).index_put_((keys // m, keys % m), pair.view(-1, p, p), accumulate=True)
+        if t.psum is None:
+            _blocks_view(h, m, p).index_put_((arc_keys // m, arc_keys % m), arc_vals.view(-1, p, p),
+                                             accumulate=True)
+        else:
+            # Every rank adds the same arcs: summed by key in one fixed
+            # order (a sorted reduction; the counts read back once), so the
+            # ranks' systems keep the same bits.
+            h = t.reduce(h)
+            order = torch.argsort(arc_keys, stable=True)
+            uniq, counts = torch.unique_consecutive(arc_keys[order], return_counts=True)
+            summed = sorted_sum(arc_vals[order], counts).view(-1, p, p)
+            blocks = _blocks_view(h, m, p)
+            blocks[uniq // m, uniq % m] = blocks[uniq // m, uniq % m] + summed
     return finish_normal_matrix(h, g.node_valid, levenberg, p)
 
 
@@ -728,7 +760,7 @@ def _block_jacobi(t: _Terms, levenberg: float):
         bn = torch.einsum("nd,nkdi->nki", t.normals, b_anchor)
         blocks = blocks + t.w_pl[:, None, None, None] * torch.einsum("nki,nkj->nkij", bn, bn)
     blocks = blocks * (g.anchor_weights**2)[..., None, None]
-    node_blocks = g.segment_over_anchors(blocks.reshape(n, k, 36)).reshape(m, 6, 6)
+    node_blocks = t.reduce(g.segment_over_anchors(blocks.reshape(n, k, 36))).reshape(m, 6, 6)
     sa = (t.stiffness * t.w_arc)[:, None, None]
     b_i = _row_blocks(t.y_jl, False)
     b_j = -_row_blocks(t.y_ll, False)
@@ -747,8 +779,9 @@ def _lumped_diagonal(t: _Terms, levenberg: float):
     m, n_lin, d = g.num_nodes, t.n_lin, t.d
     wa = g.anchor_weights
     ww = (t.w_pp + t.w_pl)[:, None] * wa**2  # (N, K)
-    acc_w = g.segment_over_anchors(ww * torch.sum(t.y * t.y, dim=-1))
-    acc_t = g.segment_over_anchors(ww)
+    acc_w, acc_t = t.reduce(
+        torch.stack([g.segment_over_anchors(ww * torch.sum(t.y * t.y, dim=-1)), g.segment_over_anchors(ww)], -1)
+    ).unbind(-1)
     sa = t.stiffness * t.w_arc
     arc_w = g.segment_over_arc_i(sa * torch.sum(t.y_jl * t.y_jl, -1)) + g.segment_over_arc_j(
         sa * torch.sum(t.y_ll * t.y_ll, -1)
@@ -831,13 +864,13 @@ def use_direct_solver(solver: str, m: int, n: int, k: int, d: int, affine: bool)
 
 def _gn_step(
     graph, node_tf, src_points, dst_points, dst_normals, w_pp, w_pl, *, stiffness, huber_delta,
-    levenberg, affine, direct, max_cg_iterations, cg_tol,
+    levenberg, affine, direct, max_cg_iterations, cg_tol, psum=None,
 ):
     """One GN iteration: ``(new transforms, max update, CG iterations)``.
     The direct route never waits on the host."""
     t = _linearize(
         graph, node_tf, src_points, dst_points, dst_normals, w_pp, w_pl, stiffness=stiffness,
-        huber_delta=huber_delta, affine=affine,
+        huber_delta=huber_delta, affine=affine, psum=psum,
     )
     rhs = t.rhs()
     if direct:
@@ -869,6 +902,7 @@ def estimate_warp_field(
     node_type: str = "rigid",
     solver: str = "auto",
     device="cuda",
+    psum: Optional[Callable] = None,
 ) -> Tuple[Transform, torch.Tensor, torch.Tensor]:
     """Per-node transforms minimizing the combined metric plus
     stiffness-weighted sqrt-Huber arc regularization (the sparse solvers at
@@ -885,6 +919,8 @@ def estimate_warp_field(
 
     Returns ``(node_transforms, converged, total_cg_iterations)`` (0 CG
     iterations under the direct solver), the last two as device tensors.
+    ``psum`` reduces the point-row sums of a point-sharded solve (see the
+    module docstring); None on one device.
     """
     dev = resolve_device(device)
     graph = graph.to(dev)
@@ -909,7 +945,7 @@ def estimate_warp_field(
         node_tf, upd, cg_k = _gn_step(
             graph, node_tf, src_points, dst_points, dst_normals, w_pp, w_pl,
             stiffness=stiffness, huber_delta=huber_delta, levenberg=levenberg, affine=affine,
-            direct=direct, max_cg_iterations=max_cg_iterations, cg_tol=cg_tol,
+            direct=direct, max_cg_iterations=max_cg_iterations, cg_tol=cg_tol, psum=psum,
         )
         cg_total = cg_total + cg_k
     return node_tf, upd < gn_tol, cg_total
@@ -963,13 +999,15 @@ def icp_warp_field(
     node_type: str = "rigid",
     solver: str = "auto",
     device="cuda",
+    psum: Optional[Callable] = None,
 ) -> Tuple[Transform, torch.Tensor, torch.Tensor]:
     """Sparse (EDG) non-rigid ICP (``CombinedMetricSparseWarpFieldICP``,
     ``icp_warp_field_combined_metric_sparse.hpp:202-240``; example defaults
     ``non_rigid_icp.cpp:66-84``). Each outer iteration: warp src by the
     blended field → NN correspondences (on the card through the prune plan
     built once here when the problem is large) → one GN step on the node
-    transforms. Returns ``(node_transforms, iterations, converged)``."""
+    transforms. Returns ``(node_transforms, iterations, converged)``.
+    ``psum`` is :func:`estimate_warp_field`'s (a point-sharded solve)."""
     from ..correspondence.search import find_nn_correspondences
     from ..neighbors.fused_nn import maybe_make_nn1_prune_plan
 
@@ -988,6 +1026,7 @@ def icp_warp_field(
         point_weight=point_weight, plane_weight=plane_weight, stiffness=stiffness,
         huber_delta=huber_delta, max_gn_iterations=max_gn_iterations, gn_tol=0.0,
         max_cg_iterations=max_cg_iterations, node_type=node_type, solver=solver, device=dev,
+        psum=psum,
     )
 
     def step(node_tf):

@@ -1,7 +1,7 @@
 """Fusion, keyframe SLAM and its backend (port of ``cilantro_tpu.slam``).
 
 Re-exports what the JAX package's ``slam`` exports from the ported
-modules. Not ported yet: ``bundle_adjust_sharded`` (multi-device)."""
+modules, the landmark-sharded ``bundle_adjust_sharded`` with them."""
 
 from .fusion import (  # noqa: F401
     FusionConfig,
@@ -16,7 +16,7 @@ from .fusion import (  # noqa: F401
     radial_weights,
 )
 from .pose_graph import optimize_pose_graph, pose_error  # noqa: F401
-from .bundle_adjustment import bundle_adjust  # noqa: F401
+from .bundle_adjustment import bundle_adjust, bundle_adjust_sharded  # noqa: F401
 from .driver import (  # noqa: F401
     FusionMetrics,
     ate_rmse,

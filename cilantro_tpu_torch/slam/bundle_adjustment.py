@@ -1,7 +1,6 @@
-"""Bundle adjustment with Schur-complement landmark elimination, single
-device (port of ``cilantro_tpu/slam/bundle_adjustment.py``; the sharded
-``bundle_adjust_sharded`` belongs to the multi-device slice and is not
-ported).
+"""Bundle adjustment with Schur-complement landmark elimination, on one
+device and with landmarks sharded over ranks (port of
+``cilantro_tpu/slam/bundle_adjustment.py``).
 
 Keyframe poses ``T_c`` (camera-to-world) and world landmarks ``X_l``;
 observation ``o`` sees landmark ``lmk[o]`` at ``Y_o`` in camera ``cam[o]``:
@@ -19,12 +18,20 @@ one host read an iteration; the PCG runs all ``max_cg`` iterations, each
 frozen by a device flag once JAX's loop condition fails, so its iterates
 equal JAX's loop's and the host never reads the flag. One outer iteration
 (:func:`_ba_step`) never waits on the host.
+
+:func:`bundle_adjust_sharded` splits landmarks and their observations over
+the mesh's ``points`` axis: landmark elimination and back-substitution stay
+on each rank, and every camera-side sum (the gradient, the preconditioner
+blocks, each PCG matvec, the residual) is reduced over the ranks by the
+``psum`` hook of :func:`_ba_blocks`, :func:`_schur_matvec` and
+:func:`_pcg_schur`, a sum in rank order, so every rank holds the same
+camera state to the bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -79,10 +86,15 @@ def _inv(m: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv_ex(m)[0]
 
 
-def _ba_blocks(poses, landmarks, cam_idx, lmk_idx, obs, w, seg: _Segments):
+def _identity(x):
+    return x
+
+
+def _ba_blocks(poses, landmarks, cam_idx, lmk_idx, obs, w, seg: _Segments, psum: Callable = _identity):
     """Per-observation GN blocks and their per-landmark / per-camera sums:
     ``(h_cc (K,6,6), h_cl (O,6,3), h_ll_inv (L,3,3), b_l (L,3), g (K,6) =
-    b_c − A H_ll⁻¹ b_l, resid)``."""
+    b_c − A H_ll⁻¹ b_l, resid)``. ``psum`` reduces ``g`` and ``resid``
+    over landmark shards; ``h_cc`` stays this shard's."""
     rt = poses.linear.transpose(-1, -2)
     x_w = landmarks[lmk_idx]  # (O, 3)
     rt_o = rt[cam_idx]  # (O, 3, 3)
@@ -108,31 +120,35 @@ def _ba_blocks(poses, landmarks, cam_idx, lmk_idx, obs, w, seg: _Segments):
 
     # g = b_c − A H_ll⁻¹ b_l, evaluated per observation.
     y_l = _mv(h_ll_inv, b_l)
-    g = seg.by_camera(b_c_o - _mv(h_cl, y_l[lmk_idx]))
-    resid = torch.sum(w * torch.sum(r * r, dim=-1))
+    g = psum(seg.by_camera(b_c_o - _mv(h_cl, y_l[lmk_idx])))
+    resid = psum(torch.sum(w * torch.sum(r * r, dim=-1)))
     return h_cc, h_cl, h_ll_inv, b_l, g, resid
 
 
-def _schur_matvec(v, h_cc, h_cl, h_ll_inv, cam_idx, lmk_idx, seg: _Segments, damping):
-    """``(S + λI) v`` with ``S = H_cc − A H_ll⁻¹ Aᵀ``, matrix-free."""
+def _schur_matvec(v, h_cc, h_cl, h_ll_inv, cam_idx, lmk_idx, seg: _Segments, damping,
+                  psum: Callable = _identity):
+    """``(S + λI) v`` with ``S = H_cc − A H_ll⁻¹ Aᵀ``, matrix-free;
+    ``psum`` reduces the camera-indexed partials over landmark shards."""
     u_o = _mtv(h_cl, v[cam_idx])  # Aᵀv pieces (O, 3)
     y_l = _mv(h_ll_inv, seg.by_landmark(u_o))
     corr = seg.by_camera(_mv(h_cl, y_l[lmk_idx]))  # A·y (K, 6)
-    return (_mv(h_cc, v) - corr) + damping * v
+    return psum(_mv(h_cc, v) - corr) + damping * v
 
 
 def _pcg_schur(g, h_cc, h_cl, h_ll_inv, cam_idx, lmk_idx, seg: _Segments, keep, damping,
-               max_cg: int = 60, cg_tol: float = 1e-10):
+               psum: Callable = _identity, max_cg: int = 60, cg_tol: float = 1e-10):
     """Block-Jacobi PCG on the gauge-fixed reduced camera system (``keep``
     zeroes the fixed cameras' rows). Returns ``(δc, iterations)``, the
-    count on the device."""
+    count on the device. ``psum`` reduces the preconditioner blocks and
+    each matvec over landmark shards; the loop flag comes from reduced
+    values, so every shard freezes at the same iteration."""
     keep6 = keep[:, None]
     eye6 = torch.eye(6, dtype=g.dtype, device=g.device)
-    prec = _inv(h_cc + (damping + 1e-8) * eye6)
+    prec = _inv(psum(h_cc) + (damping + 1e-8) * eye6)
 
     def mv(v):
         v = v * keep6
-        out = _schur_matvec(v, h_cc, h_cl, h_ll_inv, cam_idx, lmk_idx, seg, damping)
+        out = _schur_matvec(v, h_cc, h_cl, h_ll_inv, cam_idx, lmk_idx, seg, damping, psum)
         return out * keep6 + v * (1.0 - keep6)
 
     def apply_prec(r):
@@ -235,4 +251,70 @@ def bundle_adjust(
     resid = _ba_blocks(poses, landmarks, cam_idx, lmk_idx, obs, w, seg)[5]
     if stats is not None:
         stats.update(iterations=it, cg_iterations=[int(c) for c in cg_its])
+    return poses, landmarks, resid
+
+
+def bundle_adjust_sharded(
+    poses: Transform,  # replicated (K,)
+    landmarks,  # (L/D, 3): this rank's landmark shard
+    cam_idx,  # (O/D,) this shard's observations
+    lmk_idx,  # (O/D,) LOCAL landmark ids within the shard
+    observations,  # (O/D, 3)
+    obs_valid,  # (O/D,)
+    *,
+    mesh,
+    fixed_mask=None,
+    max_iterations: int = 10,
+    damping: float = 1e-6,
+    max_cg: int = 60,
+    stats: Optional[dict] = None,
+) -> Tuple[Transform, torch.Tensor, torch.Tensor]:
+    """Multi-rank Schur BA: landmarks and their observations split over
+    the mesh's ``points`` axis (a landmark's observations live on its
+    shard: partition by landmark, :func:`..parallel.sharded.shard_cloud_arrays`
+    cuts equal blocks). Every array but ``poses`` and ``fixed_mask`` is this
+    rank's shard, on the mesh's device. The camera-side sums (gradient,
+    preconditioner blocks, each PCG matvec, the residual) are each reduced
+    over the shards in rank order; landmark elimination and
+    back-substitution stay on the rank. ``max_iterations`` outer iterations
+    run, as in the JAX package, with no host read. Returns ``(poses``
+    (the same on every rank), ``this rank's landmarks, residual)``.
+    ``stats``, if given, receives ``cg_iterations`` (one count an outer
+    iteration)."""
+    from ..parallel import collectives as cc
+    from ..parallel.sharded import mesh_device
+
+    dev = mesh_device(mesh)
+
+    def psum(x):
+        return cc.psum_ordered(x, mesh, "points")
+
+    poses = Transform(
+        torch.as_tensor(poses.linear, dtype=torch.float32).to(dev),
+        torch.as_tensor(poses.translation, dtype=torch.float32).to(dev),
+    )
+    landmarks = torch.as_tensor(landmarks, dtype=torch.float32).to(dev)
+    cam_idx = torch.as_tensor(cam_idx).to(dev).long()
+    lmk_idx = torch.as_tensor(lmk_idx).to(dev).long()
+    obs = torch.as_tensor(observations, dtype=torch.float32).to(dev)
+    w = torch.as_tensor(obs_valid).to(dev).to(torch.float32)
+    k, l_local = poses.translation.shape[0], landmarks.shape[0]
+    if fixed_mask is None:
+        fixed_mask = torch.zeros(k, dtype=torch.bool, device=dev)
+        fixed_mask[0] = True
+    fixed_mask = torch.as_tensor(fixed_mask, dtype=torch.bool).to(dev)
+    keep = 1.0 - fixed_mask.to(torch.float32)
+    seg = _Segments.of(cam_idx, lmk_idx, k, l_local)
+
+    cg_its = []
+    for _ in range(max_iterations):
+        h_cc, h_cl, h_ll_inv, b_l, g, _ = _ba_blocks(poses, landmarks, cam_idx, lmk_idx, obs, w, seg, psum)
+        dc, cg_it = _pcg_schur(g, h_cc, h_cl, h_ll_inv, cam_idx, lmk_idx, seg, keep, damping, psum,
+                               max_cg=max_cg)
+        landmarks = landmarks + _back_substitute(dc, h_cl, h_ll_inv, b_l, cam_idx, seg)
+        poses = _apply_camera_update(poses, dc, fixed_mask)
+        cg_its.append(cg_it)
+    resid = _ba_blocks(poses, landmarks, cam_idx, lmk_idx, obs, w, seg, psum)[5]
+    if stats is not None:
+        stats.update(cg_iterations=[int(c) for c in cg_its])
     return poses, landmarks, resid

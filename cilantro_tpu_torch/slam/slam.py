@@ -1,6 +1,6 @@
 """End-to-end SLAM: fusion odometry → keyframes → loop closure → pose graph
-(+ optional landmark BA) → map rewrite (port of ``cilantro_tpu/slam/slam.py``,
-single device).
+(+ optional landmark BA, on one device or sharded over a mesh of ranks) →
+map rewrite (port of ``cilantro_tpu/slam/slam.py``).
 
 The front end is the pool fusion tracker, as a host loop
 (:func:`.driver.run_fusion_sequence`) or as one pass of its CUDA-graph
@@ -55,8 +55,8 @@ class SlamConfig:
     run_ba: bool = False  # refine with landmark BA after the pose graph
     ba_match_dist: float = 0.08  # m, landmark association gate
     ba_max_landmarks_per_edge: int = 512
-    # A device mesh for the landmark-sharded BA. Not ported: it must stay
-    # None (the multi-device slice, Slice H in ROADMAP.md, carries it).
+    # A (points, map) DeviceMesh (parallel.make_mesh): the landmark BA is
+    # then sharded over it (bundle_adjust_sharded). None = one device.
     ba_mesh: Optional[object] = None
     rebuild_map: bool = True  # re-integrate all frames at corrected poses
 
@@ -138,12 +138,13 @@ def _refine_ba(
     graph: KeyframeGraph, refined: List[np.ndarray], cfg: SlamConfig, device="cuda"
 ) -> List[np.ndarray]:
     """Landmark BA over the keyframe graph (:func:`_ba_problem`): poses and
-    landmarks refined jointly with the Schur solver on ``device``."""
+    landmarks refined jointly with the Schur solver on ``device``, or
+    sharded over ``cfg.ba_mesh`` (:func:`_refine_ba_sharded`)."""
     from .bundle_adjustment import bundle_adjust
 
-    if cfg.ba_mesh is not None:
-        raise NotImplementedError(_NO_SHARDED_BA)
     dev = resolve_device(device)
+    if cfg.ba_mesh is not None:
+        return _refine_ba_sharded(graph, refined, cfg, dev)
     problem = _ba_problem(graph, refined, cfg, dev)
     if problem is None:
         return refined
@@ -154,10 +155,43 @@ def _refine_ba(
     return [_matrix(lin[i], tr[i]) for i in range(len(refined))]
 
 
-_NO_SHARDED_BA = (
-    "SlamConfig.ba_mesh: the landmark-sharded bundle_adjust_sharded is not ported; "
-    "the multi-device slice (Slice H in ROADMAP.md) carries it. Use ba_mesh=None."
-)
+def _refine_ba_sharded(graph: KeyframeGraph, refined: List[np.ndarray], cfg: SlamConfig, dev):
+    """The landmark BA over ``cfg.ba_mesh``'s ``points`` axis. The rank at
+    the mesh's origin builds the problem and broadcasts it, so every rank
+    solves the same one; then, as the JAX package does, the landmarks are
+    padded to a multiple of the mesh size (each pad landmark with two
+    invalid observations: every landmark here has exactly two), the
+    observations sorted by shard and each shard given its block with local
+    landmark ids."""
+    from ..parallel import collectives as cc
+    from ..parallel.sharded import shard_cloud_arrays
+    from .bundle_adjustment import bundle_adjust_sharded
+
+    mesh = cfg.ba_mesh
+    origin = all(cc.axis_index(mesh, a) == 0 for a in mesh.mesh_dim_names)
+    problem = _ba_problem(graph, refined, cfg, dev) if origin else None
+    for axis in reversed(mesh.mesh_dim_names):  # the origin's row, then every column
+        problem = cc.broadcast_object(problem, mesh, axis)
+    if problem is None:
+        return refined
+    linear, translation, lmks, cam_idx, lmk_idx, obs = problem
+    d_sh = mesh.size()
+    l0 = len(lmks)
+    l_pad = -(-l0 // d_sh) * d_sh
+    extra = l_pad - l0
+    lmks = np.concatenate([lmks, np.zeros((extra, 3), np.float32)])
+    cam_idx = np.concatenate([cam_idx, np.zeros(2 * extra, np.int32)])
+    lmk_idx = np.concatenate([lmk_idx, np.repeat(np.arange(l0, l_pad), 2)]).astype(np.int32)
+    obs = np.concatenate([obs, np.zeros((2 * extra, 3), np.float32)])
+    valid = np.concatenate([np.ones(2 * l0, bool), np.zeros(2 * extra, bool)])
+    lp = l_pad // d_sh
+    order = np.argsort(lmk_idx // lp, kind="stable")
+    local = shard_cloud_arrays(mesh, "points", lmks, cam_idx[order], (lmk_idx[order] % lp).astype(np.int32),
+                               obs[order], valid[order])
+    new_poses, _, _ = bundle_adjust_sharded(Transform(torch.as_tensor(linear), torch.as_tensor(translation)),
+                                            *local, mesh=mesh)
+    lin, tr = new_poses.linear.cpu().numpy(), new_poses.translation.cpu().numpy()
+    return [_matrix(lin[i], tr[i]) for i in range(len(refined))]
 
 
 def integrate_sequence(
@@ -216,9 +250,8 @@ def run_slam(
     clock, each stage ended by a synchronise): ``frontend``,
     ``keyframes``, ``loop_closures``, ``pose_graph``, ``ba``,
     ``rebuild``; and ``frontend``, the scanned driver's ``stats`` (empty
-    for the host loop)."""
-    if slam.ba_mesh is not None:
-        raise NotImplementedError(_NO_SHARDED_BA)
+    for the host loop). With ``slam.ba_mesh`` every rank of the mesh calls
+    this and the BA is sharded over it (:func:`_refine_ba_sharded`)."""
     if frontend not in ("loop", "scanned"):
         raise ValueError(f"frontend must be 'loop' or 'scanned', not {frontend!r}")
     dev = resolve_device(device)

@@ -5,10 +5,10 @@ defaulted parameters after them (``device``, ``stats``, the graph-form
 ``loop``), and each class with JAX's members and dataclass fields.
 
 The exclusions are the ones ROADMAP.md's Queue 3 records, each with its
-reason below: names a later slice ports, parameters the port removed by
-design, and the Pallas-only ``interpret`` switch (the port picks a
-kernel's plain version by the tensor's device). Then the members Queue 3
-found missing are held to JAX's behaviour on the CPU."""
+reason below: the one JAX module with no counterpart, parameters the port
+removed by design, and the Pallas-only ``interpret`` switch (the port
+picks a kernel's plain version by the tensor's device). Then the members
+Queue 3 found missing are held to JAX's behaviour on the CPU."""
 
 import dataclasses
 import importlib
@@ -71,11 +71,19 @@ MODULES = [
     ("viz.interactive", ["viz.interactive"]),
     ("viz.offline", ["viz.offline"]),
     ("viz.live", ["viz.live"]),
+    ("parallel.sharded", ["parallel.sharded"]),
+    ("parallel.sharded_fusion", ["parallel.sharded_fusion"]),
+    ("parallel.sharded_warp", ["parallel.sharded_warp"]),
+    ("parallel.distributed", ["parallel.distributed"]),
 ]
 
-# Names a later slice ports (ROADMAP.md Queue 1): the sharded BA (Slice H).
-LATER = {
-    "slam.bundle_adjustment": {"bundle_adjust_sharded"},
+# Names a later slice ports (ROADMAP.md Queue 1): none are left.
+LATER = {}
+# JAX modules with no counterpart, and why.
+NO_COUNTERPART = {
+    "core.vma": "types the varying mesh axes of JAX's checked shard_map programs (pcast of "
+                "constants before they meet sharded values); a rank's code in PyTorch is plain "
+                "per-rank tensors with no such types",
 }
 # The Pallas calls themselves: their counterparts are the kernel wrappers,
 # which take the kernels' augmented rows (``fused_nn.fused_rows``,
@@ -162,13 +170,24 @@ def test_port_keeps_the_public_surface(jname, tnames):
     assert checked > 0
 
 
+@pytest.mark.parametrize("jname", sorted(NO_COUNTERPART))
+def test_modules_without_counterpart(jname):
+    """Every JAX module is ported but those recorded here with a reason;
+    those have no module of their name in the port."""
+    import importlib.util
+
+    assert NO_COUNTERPART[jname]
+    assert importlib.util.find_spec(f"cilantro_tpu.{jname}") is not None
+    assert importlib.util.find_spec(f"cilantro_tpu_torch.{jname}") is None
+
+
 def test_slam_package_exports():
-    """``cilantro_tpu_torch.slam`` re-exports what JAX's ``slam`` exports
-    from the ported modules (not the sharded BA)."""
+    """``cilantro_tpu_torch.slam`` re-exports what JAX's ``slam`` exports,
+    the sharded BA included."""
     import cilantro_tpu.slam as jslam
     import cilantro_tpu_torch.slam as tslam
 
-    not_ported = {"bundle_adjust_sharded"}
+    not_ported = set()
     jnames = {n for n in dir(jslam) if not n.startswith("_") and callable(getattr(jslam, n))}
     tnames = {n for n in dir(tslam) if not n.startswith("_") and callable(getattr(tslam, n))}
     assert jnames - not_ported <= tnames, sorted(jnames - not_ported - tnames)
@@ -178,12 +197,13 @@ def test_slam_package_exports():
                  "load_checkpoint", "synthetic_panorama_sequence", "make_pipeline_mesh",
                  "run_fusion_sequence_pipelined", "BatchedFusionMetrics", "batched_fusion_step",
                  "batched_integrate", "batched_seed_localize_target", "run_batched_fusion_sequences",
-                 "stack_maps", "unstack_maps"):
+                 "stack_maps", "unstack_maps", "bundle_adjust_sharded"):
         assert name in tnames, name
 
 
 # The packages whose ``__init__`` re-exports JAX's names.
-PACKAGES = ("core", "neighbors", "correspondence", "clustering", "model_estimation", "spatial", "utils", "viz")
+PACKAGES = ("core", "neighbors", "correspondence", "clustering", "model_estimation", "spatial", "utils", "viz",
+            "parallel")
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

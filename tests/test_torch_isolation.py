@@ -29,11 +29,27 @@ print("LOADED", loaded)
 print("WALKED", " ".join(walked))
 """
 
-# The modules of Slice G2, each of which the probe must import.
+# The modules of Slices G2 and H, each of which the probe must import.
 G2_MODULES = (
     "native", "utils.io", "utils.colormap", "utils.timer", "utils.roofline", "utils.honest_timing",
     "utils.profiling", "utils.ply_io", "viz", "viz.interactive", "viz.offline", "viz.live",
+    "parallel", "parallel.sharded", "parallel.sharded_fusion", "parallel.sharded_warp",
+    "parallel.distributed", "parallel.collectives",
 )
+# The multi-rank tests' worker scripts: the ranks run the port alone.
+_WORKER_PROBE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["cilantro_tpu"] = None
+sys.path.insert(0, "tests")
+import torch_parallel_ranks, torch_parallel_worker
+torch_parallel_worker.small_ba()
+loaded = sorted(
+    name for name, mod in sys.modules.items()
+    if mod is not None and (name.split(".")[0] in ("jax", "jaxlib", "cilantro_tpu"))
+)
+print("LOADED", loaded, sorted(torch_parallel_worker.SUITES))
+"""
 
 
 def test_import_loads_no_jax_and_no_jax_package():
@@ -46,6 +62,14 @@ def test_import_loads_no_jax_and_no_jax_package():
     walked = set(out.stdout.split("WALKED", 1)[1].split())
     missing = {f"cilantro_tpu_torch.{m}" for m in G2_MODULES} - walked
     assert not missing, sorted(missing)
+
+
+def test_worker_scripts_load_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _WORKER_PROBE], cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED [] ['ba', 'desync', 'fusion', 'icp', 'pipeline', 'warp']" in out.stdout, out.stdout
 
 
 def test_cuda_default_raises_without_cuda(monkeypatch):
@@ -206,6 +230,19 @@ def test_multi_stream_entry_points_raise_without_cuda(monkeypatch):
     assert data.device.type == "cpu" and metrics.poses.shape == (2, 2, 4, 4)
     fmap, metrics = slam.run_fusion_sequence_pipelined(list(stacks[0]), k, device="cpu")
     assert fmap.data.device.type == "cpu" and metrics.frames == 2
+
+
+def test_parallel_entry_points_raise_without_cuda(monkeypatch):
+    """The mesh defaults to the card: without CUDA ``make_mesh`` raises
+    before it makes a process group."""
+    import torch.distributed as dist
+
+    from cilantro_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    assert not dist.is_initialized()
 
 
 def test_estimation_entry_points_raise_without_cuda(monkeypatch):
