@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 (``/usr/local/cuda`` or on ``PATH``). It imports nothing of JAX. Phases,
 in order; any failure raises and exits non-zero without the final line:
 
-1. build the CUDA kernels from ``cilantro_tpu_torch/csrc/`` (one ``nvcc``
-   per source, all at once);
+1. build the CUDA kernels from ``cilantro_tpu_torch/csrc/`` and phase
+   37's gather variants (one ``nvcc`` per library, all at once, all
+   finished before anything is timed);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes splat fusion gives it at 640×480 (bit for bit: they are pure
    selects), and time kernel and plain version (CUDA events, median of 25
@@ -75,8 +76,10 @@ in order; any failure raises and exits non-zero without the final line:
 11. the gather kernel against its plain version, bit for bit, on the first
     stream of each call site of phase 10, a random stream and one with 30%
     wildcards at the integrate shape, timed as in phase 2 beside
-    ``torch.index_select`` and the byte bound (indices, output rows and
-    each distinct source row once, at 3.35 TB/s);
+    ``torch.index_select`` and two byte bounds at 3.35 TB/s: indices and
+    output rows once, and each distinct source row once (``bound_ms``) or
+    each distinct 64-byte segment of the source the indices touch
+    (``bound_64b_ms``; every gather held on a path reports both);
 12. a per-stage time split of the pool frame and a profiler window
     (informational);
 13. the first 4 frames of the pool pipeline on the CPU (the plain
@@ -283,8 +286,8 @@ in order; any failure raises and exits non-zero without the final line:
     with a pool of 4·H·W = 1,228,800 slots and stride-2 localize (poses
     within 5e-5 of ``fusion_step``'s, live rows within 0.1%; host and
     CUDA-event ms a frame of both, and of one frame's collectives alone),
-    ``sharded_icp_warp_field`` on phase 23's height field with CG (warped
-    points within 1e-4 m median of ``icp_warp_field``'s),
+    ``sharded_icp_warp_field`` on phase 23's height field with CG (bit
+    for bit ``icp_warp_field``'s and a second sharded run's),
     ``bundle_adjust_sharded`` at phase 27's scale (residual below 3.0, two
     solves the same bits, within 1e-4 of ``bundle_adjust``) and
     ``run_slam`` with ``SlamConfig.ba_mesh`` at phase 26's row under its
@@ -298,7 +301,18 @@ in order; any failure raises and exits non-zero without the final line:
     shards deals augments to other slots, so phase 35's bounds against
     the one-device step), the pipeline bit for bit the scanned driver,
     every replicated output the same on both ranks; host and CUDA-event
-    ms of each. Then a ``{"parallel_paths": ...}`` line.
+    ms of each. Then a ``{"parallel_paths": ...}`` line;
+37. beside phase 11, the gather's designs in one A/B
+    (``cilantro_tpu_torch/tools/gather_variants.py``, built with the
+    kernels in phase 1): the first design, the kernel as built, its
+    source variants and the other designs of
+    ``tools/gather_alternatives.cu``, each held bit for bit against the
+    plain gather and timed as in phase 2, forward then backward, on every
+    stream that phases 11, 25, 26, 28, 34 and 35 held, and on rows at a
+    stride of 1, 2 and 4 of the B = 8 ICP source (those and the B = 8 ICP
+    stream also with the L2 cleared before each run); then a
+    ``{"gather_designs": ...}`` line with each stream's time as built
+    against the first design.
 
 Before phase 23 one empty launch (``torch.cuda._sleep(0)``) is timed as in
 phase 2, beside the gather's ICP-stream time and bound (informational).
@@ -1216,39 +1230,64 @@ def pool_main_path(depths, gt, k, card):
     return launches, streams, met
 
 
-def gather_kernel_checks(cg, streams):
-    """Phase 11: the gather kernel against its plain version, bit for bit,
-    on the three recorded streams, a uniformly random one and one with 30%
-    wildcards at the integrate shape; timed beside the plain version,
-    ``torch.index_select`` (the yardstick) and the byte bound: each index
-    read once, each output row written once, each distinct source row
-    read once."""
+# Every gather stream a phase held bit for bit, by label: ``(src, idx)``
+# for the A/B of the gather's designs (phase 37).
+GATHER_STREAMS: dict = {}
+
+
+def gather_bytes(src, idx) -> dict:
+    """The gather's bytes: each index read once, each output row written
+    once, and either each distinct source row read once (``bytes``, the
+    bound reported from the start) or each distinct 64-byte segment of
+    ``src`` that the clamped indices touch (``bytes_64b``: the memory
+    system fetches whole segments, so rows 32 bytes wide at a stride of
+    two move twice their bytes)."""
+    n, w = idx.shape[0], src.shape[1]
+    rows = torch.unique(idx.clamp(0, src.shape[0] - 1).long())
+    off, row_bytes = src.data_ptr() % 64, w * src.element_size()
+    segments = int(torch.unique(torch.cat([(off + rows * row_bytes) // 64,
+                                           (off + (rows + 1) * row_bytes - 1) // 64])).numel())
+    moved = n * 4 + n * row_bytes
+    return dict(rows=n, width=w, distinct_rows=int(rows.numel()), segments_64b=segments,
+                bytes=moved + int(rows.numel()) * row_bytes, bytes_64b=moved + segments * 64)
+
+
+def gather_cases(streams) -> dict:
+    """Phase 11's cases: the recorded streams, a uniformly random one and
+    one with 30% wildcards at the integrate shape."""
     rng = np.random.default_rng(1)
     src, idx = streams["integrate_rows"]
     c = src.shape[0]
     rand = torch.from_numpy(rng.integers(0, c, idx.shape[0]).astype(np.int32)).to(idx.device)
     wild = idx.clone()
     wild[torch.from_numpy(rng.random(idx.shape[0]) < 0.3).to(idx.device)] = -1
-    cases = dict(streams, random=(src, rand), wildcards_30pct=(src, wild))
+    return dict(streams, random=(src, rand), wildcards_30pct=(src, wild))
+
+
+def gather_kernel_checks(cg, streams):
+    """Phase 11: the gather kernel against its plain version, bit for bit,
+    on the three recorded streams, a uniformly random one and one with 30%
+    wildcards at the integrate shape; timed beside the plain version,
+    ``torch.index_select`` (the yardstick) and both byte bounds of
+    :func:`gather_bytes`."""
     out = {}
-    for label, (s, i) in cases.items():
+    for label, (s, i) in gather_cases(streams).items():
+        GATHER_STREAMS[f"phase 11, {label}"] = (s, i)
         kernel = lambda: cg.coalesced_gather(s, i)  # noqa: E731
         plain = lambda: cg.coalesced_gather_plain(s, i)  # noqa: E731
         library = lambda: torch.index_select(s, 0, i.clamp(0, s.shape[0] - 1))  # noqa: E731
         k_out, p_out = kernel(), plain()
         torch.cuda.synchronize()
         assert_same_bits(f"coalesced_gather ({label})", [k_out], [p_out])
-        n, w = i.shape[0], s.shape[1]
-        distinct = int(torch.unique(i.clamp(0, s.shape[0] - 1)).numel())
-        nbytes = n * 4 + n * w * 4 + distinct * w * 4
+        sizes = gather_bytes(s, i)
         entry = dict(
             name="coalesced_gather", route="cuda", source="cilantro_tpu_torch/csrc/gather_kernels.cu",
             replaces="cilantro_tpu/core/coalesced.py:137", max_abs_err=max_abs_err(k_out, p_out),
             ms=device_ms(kernel), plain_ms=device_ms(plain),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=device_ms(library),
+            bound_ms=sizes["bytes"] / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=device_ms(library),
             library_is="torch.index_select of the clamped indices (a yardstick; the port never calls it)",
-            bytes=nbytes, rows=n, src_rows=s.shape[0], width=w, distinct_rows=distinct,
-            wildcards=int((i < 0).sum()),
+            bound_64b_ms=sizes["bytes_64b"] / HBM_BYTES_PER_S * 1e3, src_rows=s.shape[0],
+            wildcards=int((i < 0).sum()), **sizes,
         )
         emit(phase="gather_kernel_vs_plain", stream=label, tolerance="bit-exact", **entry)
         out[label] = entry
@@ -2246,11 +2285,12 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
             kernel = lambda: cg.coalesced_gather(src, idx)  # noqa: E731
             plain = lambda: cg.coalesced_gather_plain(src, idx)  # noqa: E731
             library = lambda: torch.index_select(src, 0, idx.clamp(0, src.shape[0] - 1))  # noqa: E731
-            n, w = idx.shape[0], src.shape[1]
-            distinct = int(torch.unique(idx.clamp(0, src.shape[0] - 1)).numel())
-            pairs, nbytes = None, n * 4 + n * w * 4 + distinct * w * 4
-            extra = dict(rows=n, width=w, distinct_rows=distinct,
+            sizes = gather_bytes(src, idx)
+            pairs, nbytes = None, sizes["bytes"]
+            extra = dict({k_: v for k_, v in sizes.items() if k_ != "bytes"},
+                         bound_64b_ms=sizes["bytes_64b"] / HBM_BYTES_PER_S * 1e3,
                          library_is="torch.index_select of the clamped indices (a yardstick)")
+            GATHER_STREAMS[f"{path}, {sizes['rows']} of {src.shape[0]} rows of {sizes['width']}"] = (src, idx)
         else:
             raise AssertionError(f"{path}: no check for kernel {name}")
         quick = quick_pairs is not None and pairs is not None and pairs >= quick_pairs
@@ -3637,12 +3677,13 @@ def viz_path(depths, k, streams, card):
     event_ms = device_ms(lambda: gather(src, idx))
     eager = op_time(gather, (src, idx))
     replayed = op_time(gather, (src, idx), precompiled=graph_loops(gather, (src, idx), 2, 8))
-    n, w = idx.shape[0], src.shape[1]
-    distinct = int(torch.unique(idx.clamp(0, src.shape[0] - 1)).numel())
-    nbytes = n * 4 + n * w * 4 + distinct * w * 4
+    sizes = gather_bytes(src, idx)
+    n, nbytes = sizes["rows"], sizes["bytes"]
     line = roofline("coalesced_gather integrate stream", event_ms / 1e3, bytes_moved=nbytes, rows=n)
     timing = dict(event_median_ms=event_ms, op_time_eager=dataclasses.asdict(eager),
-                  op_time_graph=dataclasses.asdict(replayed), roofline=line.strip(), bytes=nbytes, rows=n)
+                  op_time_graph=dataclasses.asdict(replayed), roofline=line.strip(),
+                  bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                  bound_64b_ms=sizes["bytes_64b"] / HBM_BYTES_PER_S * 1e3, **sizes)
     emit(phase="viz_path", frames=frames, launches=launches, icp_iterations=met.icp_iterations,
          snapshots=snaps, render=render, gather_timing=timing, card=card)
     print(line, file=sys.stderr, flush=True)
@@ -3889,18 +3930,25 @@ def world_one_paths(depths, gt, k, pair, rel, card):
                   "launches": launches})
     del data, frames
 
-    # 35c. The sharded warp against the one-device CG solve.
+    # 35c. The sharded warp against the one-device CG solve: at world 1
+    # every sum of both is the same sorted reduction, so the two solves,
+    # and two sharded runs, give the same bits.
     graph, src_t, dst_t = warp_problem(dev)
     (tf, it, _), launches, kept = counted_run(
         lambda: sharded_icp_warp_field(graph, src_t, dst_t, mesh=mesh, **SHARDED_WARP_KW))
-    h_ms, e_ms, _ = event_ms(lambda: sharded_icp_warp_field(graph, src_t, dst_t, mesh=mesh, **SHARDED_WARP_KW))
+    h_ms, e_ms, (tf2, it2, _) = event_ms(
+        lambda: sharded_icp_warp_field(graph, src_t, dst_t, mesh=mesh, **SHARDED_WARP_KW))
     sh_ms, se_ms, (tf1, it1, _) = event_ms(lambda: tw.icp_warp_field(graph, src_t, dst_t, device=dev,
                                                                    **SHARDED_WARP_KW))
     warped = tw.warp_points(graph, tf, src_t, device=dev)
     diff = torch.linalg.vector_norm(warped - tw.warp_points(graph, tf1, src_t, device=dev), dim=1)
     med = float(diff.median())
-    if not med < 1e-4:
-        raise AssertionError(f"sharded warp: warped points {med} m (median) from the one-device solve")
+    for label, (other, other_it) in (("the one-device solve", (tf1, it1)), ("a second sharded run", (tf2, it2))):
+        same = int(other_it) == int(it) and all(
+            torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in ((tf.linear, other.linear), (tf.translation, other.translation)))
+        if not same:
+            raise AssertionError(f"sharded warp: not the bits of {label} (warped points {med} m apart, median)")
     emit(phase="parallel_warp", entry="sharded_icp_warp_field", world=1, backend="nccl", points=WARP_POINTS,
          nodes=graph.num_nodes, solver="cg", iterations=int(it), iterations_one_device=int(it1),
          median_diff_m=med, max_diff_m=float(diff.max()), errors=warp_errors(warped.cpu().numpy(), dst_t.cpu().numpy()),
@@ -4163,12 +4211,17 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
 
-    # 1. Build.
+    # 1. Build the kernels and the gather's design variants (phase 37), every
+    # nvcc at once, and wait for all of them before anything is timed.
+    from cilantro_tpu_torch.tools import gather_variants
+
     t0 = time.perf_counter()
+    gather_jobs = gather_variants.start_build(native)
     logs = native.build()
+    designs = gather_variants.finish_build(gather_jobs)
     build_s = time.perf_counter() - t0
-    emit(phase="build", seconds=build_s, sources=list(native.SOURCES),
-         compiled=sorted(logs), card=card, torch=torch.__version__, cuda=torch.version.cuda)
+    emit(phase="build", seconds=build_s, sources=list(native.SOURCES), compiled=sorted(logs),
+         gather_designs=[name for name, _ in designs], card=card, torch=torch.__version__, cuda=torch.version.cuda)
     for name, log in logs.items():
         emit(phase="build_log", source=name,
              ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
@@ -4375,6 +4428,16 @@ def main() -> int:
     par_paths, par_held, sharded_launches, ref = world_one_paths(depths, gt, k, pair, rel, card)
     par_paths += two_rank_paths(depths, k, ref, card)
     print(json.dumps({"parallel_paths": par_paths, "held_bit_exact": par_held}), flush=True)
+
+    # 37. The gather's designs in one A/B on every stream held above.
+    icp_b8 = next(label for label in GATHER_STREAMS if "batched icp_projective" in label)
+    strided = gather_variants.stride_cases(GATHER_STREAMS[icp_b8][0], GATHER_STREAMS[icp_b8][1].shape[0])
+    ab = gather_variants.ab(designs, {**GATHER_STREAMS, **strided}, card, cold=(*strided, icp_b8))
+    built, first = gather_variants.BUILT, gather_variants.FIRST
+    print(json.dumps({"gather_designs": {label: {"as_built_ms": t[built], "first_design_ms": t[first],
+                                                 "ratio": t[built] / t[first]} for label, t in ab.items()}}),
+          flush=True)
+    gather_entry["first_design_ms"] = ab["phase 11, integrate_rows"][first]
 
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]

@@ -9,9 +9,12 @@ with ``src[idx.clamp(0, C-1)]`` bit for bit on every row, and a caller's
 result does not depend on whether it went through the kernel.
 
 The CUDA kernel (``csrc/gather_kernels.cu``, built for ``sm_90a`` at first
-CUDA use) takes float32 rows of width 8 or 16 and any ``C ≥ 1``; a CUDA
-``src`` of another width or dtype raises. CPU tensors of any width or
-dtype take the plain version. The TPU kernel's coalescing plan, window
+CUDA use) takes float32 rows of width 8 or 16, any ``C ≥ 1``, and fewer
+than 2^31 float4s of source and of output, since its offsets are 32-bit;
+its launcher refuses more, and the wrapper raises first (for a ``src`` of
+2^31 elements or more, and for 2^31 float4s or more of output). A CUDA
+``src`` of another width or dtype raises. CPU tensors of any width
+or dtype take the plain version. The TPU kernel's coalescing plan, window
 fetch and one-hot realignment answered a per-row DMA cost the card does
 not have (see the kernel source) and are not ported. Every launch adds one
 to ``launch_counts["coalesced_gather"]``.
@@ -66,6 +69,8 @@ def coalesced_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     native.check(name, src, "src", (torch.float32,), (c, w))
     if w not in KERNEL_WIDTHS:
         raise ValueError(f"{name}: src rows are {w} wide, the kernel takes {KERNEL_WIDTHS}")
+    if n * (w // 4) >= 2**31:  # check() keeps src under 2^31 elements, 2^29 float4s
+        raise ValueError(f"{name}: {n} output rows of {w} are 2^31 float4s or more, the kernel's limit")
     if not (src.is_contiguous() and idx.is_contiguous()):
         raise ValueError(f"{name}: src and idx must be contiguous")
     if src.data_ptr() % 16:

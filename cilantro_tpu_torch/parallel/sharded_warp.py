@@ -19,12 +19,13 @@ The warp's Gauss-Newton system separates across the ``points`` axis:
   the same iteration.
 
 The graph's flattened-anchor sort is a permutation over all N·K point rows,
-which sharding would scatter across ranks: a sharded graph keeps identity
-anchor caches (``caches_sorted=False``) and its anchor sums scatter, as
-the JAX module's ``_replicate_sort_caches`` arranges. Each rank's anchor
-sum is computed once and gathered, so all ranks add the same parts; the
-arc sums, which every rank computes itself, stay sorted reductions
-(deterministic) so that the ranks agree to the bit.
+which sharding would scatter across ranks, so the JAX module's
+``_replicate_sort_caches`` drops it and its anchor sums scatter. Here each
+rank sorts its own rows' anchors instead, so that its anchor sums, like
+the arc sums, are sorted reductions: a scatter-add's atomics would round
+differently in every run, and the GN and CG loops amplify that into
+results that part from run to run. Each rank's anchor sum is computed
+once and gathered, so all ranks add the same parts and agree to the bit.
 
 Arguments are the whole problem (numpy or tensors) on every rank; each
 rank cuts its own rows (the point count must divide the axis size: pad
@@ -52,33 +53,28 @@ from .sharded import mesh_device, shard_rows
 
 
 def _replicate_sort_caches(g: DeformationGraph) -> DeformationGraph:
-    """Identity anchor caches and no pair-assembly caches: the anchor sums
-    then scatter, and the direct solver takes the scatter assembly. The
-    arcs are whole on every rank, so their sums keep sorted reductions
-    (the sort and the lengths counted here, on the host): a scatter-add's
-    atomics would give each rank other bits of the same node system."""
+    """Sort caches of this rank's anchors and of the whole arcs, and no
+    pair-assembly caches (the direct solver takes the scatter assembly).
+    Every segment sum over them is then a sorted reduction (the sorts and
+    the lengths counted here, on the host): a scatter-add's atomics would
+    round differently in every run and on every rank."""
     dev = g.anchors.device
-    m = g.num_nodes
     arc_i, arc_j = g.arc_i.cpu().numpy().astype(np.int64), g.arc_j.cpu().numpy().astype(np.int64)
     if np.any(np.diff(arc_i) < 0):
         raise ValueError("arc_i must be sorted (build_deformation_graph and build_dense_graph sort it)")
-    jorder = np.argsort(arc_j, kind="stable")
-    g = _with_segment_lengths(dataclasses.replace(
+    flat = g.anchors.reshape(-1).cpu().numpy().astype(np.int64)
+    order, jorder = np.argsort(flat, kind="stable"), np.argsort(arc_j, kind="stable")
+    return _with_segment_lengths(dataclasses.replace(
         g,
-        anchor_order=torch.arange(g.anchors.numel(), dtype=torch.int32, device=dev),
-        anchor_sorted_ids=g.anchors.reshape(-1),
+        anchor_order=torch.as_tensor(order.astype(np.int32), device=dev),
+        anchor_sorted_ids=torch.as_tensor(flat[order].astype(np.int32), device=dev),
         arc_j_order=torch.as_tensor(jorder.astype(np.int32), device=dev),
         arc_j_sorted=torch.as_tensor(arc_j[jorder].astype(np.int32), device=dev),
-        caches_sorted=False,
+        caches_sorted=True,
         pair_order=None, pair_seg_ids=None, pair_uniq_keys=None,
         ps_kkf=None, ps_llf=None, ps_w2=None, ps_swap=None, ps_seg=None,
         arc_sorted_order=None, arc_sorted_seg=None,
     ))
-    return dataclasses.replace(
-        g,
-        arc_i_lengths=torch.as_tensor(np.bincount(arc_i, minlength=m), device=dev),
-        arc_j_lengths=torch.as_tensor(np.bincount(arc_j, minlength=m), device=dev),
-    )
 
 
 def _point_sum(mesh: DeviceMesh, axis: str):
@@ -97,7 +93,7 @@ def shard_warp_problem(
 ):
     """This rank's part of a warp problem: the graph with its
     point-aligned fields (anchors, anchor weights) cut to this rank's rows
-    and identity sort caches, its node-aligned fields whole; and this
+    and sort caches of those rows, its node-aligned fields whole; and this
     rank's rows of ``src``, ``dst``, the normals and the weights, all on
     the mesh's device. Returns ``(graph, src, dst, nrm, w)`` for
     :func:`sharded_estimate_warp_field`'s solver."""

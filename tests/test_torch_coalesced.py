@@ -101,3 +101,20 @@ def test_cpu_gather_launches_nothing_and_checks_idx():
     assert tc.launch_counts["coalesced_gather"] == before
     with pytest.raises(TypeError, match="dtype"):
         tc.coalesced_gather(src, torch.arange(10))
+
+
+def test_cuda_path_refuses_what_the_kernel_cannot_index(monkeypatch):
+    """Past 2^31 float4s of output, or 2^31 elements of source, the CUDA
+    path raises before it allocates or launches (the kernel's offsets are
+    32-bit). CPU tensors are sent down that path here; expanded views give
+    the sizes without the memory."""
+    monkeypatch.setattr(tc.native, "on_cpu", lambda name, *tensors: False)
+    before = tc.launch_counts["coalesced_gather"]
+    with pytest.raises(ValueError, match=r"2\^31 float4s or more"):
+        tc.coalesced_gather(torch.zeros(4, 16), torch.zeros(1, dtype=torch.int32).expand(2**29))
+    with pytest.raises(ValueError, match=r"2\^31 float4s or more"):
+        tc.coalesced_gather(torch.zeros(4, 8), torch.zeros(1, dtype=torch.int32).expand(2**30))
+    with pytest.raises(ValueError, match=r"src has 2\^31 elements or more"):
+        tc.coalesced_gather(torch.zeros(1, 16).expand(2**27, 16), torch.zeros(3, dtype=torch.int32))
+    assert tc.launch_counts["coalesced_gather"] == before
+

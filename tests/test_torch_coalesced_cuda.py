@@ -75,6 +75,112 @@ def test_kernel_edge_shapes(cuda):
     assert torch.equal(out, src[-1:].expand(65, -1))
 
 
+# Rows of a warp tile of the kernel (csrc/gather_kernels.cu) at either width.
+TILE = 32
+
+
+def _runs(n, run, c, gap=1000, start=0):
+    """Runs of ``run`` consecutive indices, each ``gap`` apart in ``src``."""
+    i = np.arange(n)
+    return (start + (i // run) * gap + i % run) % c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("big", [False, True])
+def test_kernel_tile_edges(cuda, width, big):
+    """N at, below and above multiples of the tile and of a block's tiles,
+    N = 1, and runs that start mid-tile and cross tile, block and warp
+    boundaries, whole or broken by wildcards; in a small stream (one warp a
+    tile) and past a million float4s (the resident blocks walk the
+    tiles)."""
+    c = 20_000
+    src = _src(c, width, cuda, seed=width + 1)
+    tile = TILE
+    base = 2_000_000 // width * 4 if big else 0
+    for n in (1, 2, tile - 1, tile, tile + 1, 2 * tile - 1, 3 * tile + 5, 8 * tile - 1, 8 * tile + 1):
+        _gather(src, _idx((np.arange(base + n) * 7 + 3) % c, cuda))
+    n = base + 40 * tile + 11
+    for run, start in ((50, 20), (tile + 3, 5), (33, 31), (tile // 2, tile // 4)):
+        _gather(src, _idx(_runs(n, run, c, start=start), cuda))
+    broken = _runs(n, tile + 3, c, start=9)
+    broken[::37] = -1
+    broken[tile - 1::tile] = -7  # a wildcard at the last row of every tile
+    _gather(src, _idx(broken, cuda))
+    _gather(src, _idx(np.arange(n) % c, cuda))  # one run over every tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 16])
+def test_kernel_clamps_every_index(cuda, width):
+    """All wildcards, C = 1, and indices of INT32_MIN and INT32_MAX among
+    valid ones: the clamp reads row 0 or row C-1."""
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    for n in (5 * TILE + 3, 400_003):
+        src = _src(300, width, cuda, seed=3)
+        out = _gather(src, _idx(np.full(n, -1), cuda))
+        assert torch.equal(out, src[:1].expand(n, -1))
+        out = _gather(src, _idx(np.full(n, lo), cuda))
+        assert torch.equal(out, src[:1].expand(n, -1))
+        out = _gather(src, _idx(np.full(n, hi), cuda))
+        assert torch.equal(out, src[-1:].expand(n, -1))
+        mixed = np.arange(n) % 300
+        mixed[::3], mixed[1::5] = lo, hi
+        _gather(src, _idx(mixed, cuda))
+        one = _src(1, width, cuda, seed=4)
+        for stream in ([0], [lo, hi, -1, 0, 1, 2], np.arange(n) - n // 2):
+            out = _gather(one, _idx(stream, cuda))
+            assert torch.equal(out, one.expand(len(stream), -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("n", [650_001, 4_000_037])
+def test_kernel_walks_several_tiles(cuda, width, n):
+    """N of 2-4 rounds of the resident blocks (each warp walks several
+    tiles) and past that (one warp a tile): runs, random rows and 5%
+    wildcards."""
+    rng = np.random.default_rng(width + 7)
+    c = 1_500_000
+    src = _src(c, width, cuda, seed=5)
+    runs = _runs(n, 600, c, gap=611, start=13)
+    runs[rng.random(n) < 0.05] = -1
+    _gather(src, _idx(runs, cuda))
+    _gather(src, _idx(rng.integers(0, c, n), cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 16])
+def test_kernel_reads_an_offset_view(cuda, width):
+    """``src`` a 16-byte-aligned view at a nonzero offset: rows off the
+    64-byte grid, runs and random rows, small and large streams."""
+    rng = np.random.default_rng(width + 11)
+    c = 10_000
+    flat = _src(c + 2, width, cuda, seed=6).view(-1)
+    for offset in (4, 8, 12):  # 16, 32 and 48 bytes
+        src = flat[offset:offset + c * width].view(c, width)
+        assert src.data_ptr() % 16 == 0 and src.data_ptr() % 64 != 0
+        for n in (9 * TILE + 7, 300_007):
+            _gather(src, _idx(_runs(n, 70, c, start=1), cuda))
+            _gather(src, _idx(rng.integers(-3, c + 3, n), cuda))
+
+
+@pytest.mark.cuda
+def test_launcher_refuses_what_it_cannot_index(cuda):
+    """The C launcher refuses, without launching, a width other than 8 or 16
+    and 2^31 float4s or more of output or source (its offsets are 32-bit)."""
+    lib = tc._kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+    invalid = 1  # cudaErrorInvalidValue
+    assert lib.coalesced_gather_launch(0, 0, 0, 10, 12, 5, stream) == invalid
+    assert lib.coalesced_gather_launch(0, 0, 0, 10, 16, 2**29, stream) == invalid
+    assert lib.coalesced_gather_launch(0, 0, 0, 10, 8, 2**30, stream) == invalid
+    assert lib.coalesced_gather_launch(0, 0, 0, 2**29, 16, 5, stream) == invalid
+    assert lib.coalesced_gather_launch(0, 0, 0, 0, 16, 5, stream) == invalid
+    assert lib.coalesced_gather_launch(0, 0, 0, 10, 16, 0, stream) == 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_other_widths_and_dtypes_raise(cuda):
     idx = _idx(np.arange(64) - 3, cuda)

@@ -12,7 +12,8 @@ Tolerances: registrations within 1e-4 of the true motion and the ring
 within 1e-5 of the tournament with the same iterations; the ring's
 nearest neighbours bit for bit ``nn1_fused``'s; the small BA at the JAX
 test's residual bound (1e-6) and within 1e-4 of ``bundle_adjust``; the
-two-rank pipeline bit for bit the scanned driver; replicated outputs
+sharded warp at world 1 bit for bit the one-device solve; the two-rank
+pipeline bit for bit the scanned driver; replicated outputs
 bit-identical across ranks."""
 
 import numpy as np
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from torch_parallel_ranks import Ranks
-from torch_parallel_worker import ICP_KW, ba_partition, icp_case, ring_case, small_ba
+from torch_parallel_worker import ICP_KW, WARP_ICP_KW, ba_partition, icp_case, ring_case, small_ba, warp_case
 
 
 @pytest.fixture()
@@ -80,6 +81,24 @@ def test_nccl_world_of_one_runs_the_sharded_entry_points(nccl_mesh):
     q1, _, _ = tslam.bundle_adjust(poses0, x0, cam, lmk, obs, max_iterations=15, device="cuda")
     assert float(resid) < 1e-6
     assert torch.allclose(p.linear, q1.linear, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_warp_is_the_one_device_solve(nccl_mesh):
+    """At world 1 every sum of the sharded warp is the one-device solve's
+    sorted reduction: the same bits, and the same bits in a second run."""
+    from cilantro_tpu_torch.parallel import sharded_icp_warp_field
+    from cilantro_tpu_torch.registration import warp_field as tw
+
+    src, dst, nodes = warp_case()
+    graph = tw.build_deformation_graph(torch.as_tensor(src, device="cuda"), torch.as_tensor(nodes, device="cuda"),
+                                       device="cuda")
+    want, want_it, _ = tw.icp_warp_field(graph, src, dst, device="cuda", **WARP_ICP_KW)
+    for _ in range(2):
+        tf, it, _ = sharded_icp_warp_field(graph, src, dst, mesh=nccl_mesh, **WARP_ICP_KW)
+        assert int(it) == int(want_it)
+        for a, b in ((tf.linear, want.linear), (tf.translation, want.translation)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda

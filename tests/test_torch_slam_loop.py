@@ -131,17 +131,6 @@ def port_run(sequence):
     return fmap, res, kept
 
 
-def test_panorama_sequence_matches_jax(sequence):
-    depths, gt = sequence
-    for args in ((FRAMES, H, W), (6, 40, 56)):
-        kw = dict(seed=3, depth_noise=0.008) if args[0] == FRAMES else dict(seed=1, depth_noise=0.0,
-                                                                             sweep_deg=60.0)
-        want = (depths, gt) if args[0] == FRAMES else jslam.synthetic_panorama_sequence(*args, JK, **kw)
-        got = tslam.synthetic_panorama_sequence(*args, K, **kw)
-        for a, b in zip(want[0] + want[1], got[0] + got[1]):
-            assert a.dtype == b.dtype and np.array_equal(a, b)
-
-
 def test_run_slam_matches_jax(jax_run, port_run, sequence):
     (jres, jkept), (_, tres, tkept) = jax_run, port_run
     _, gt = sequence
@@ -295,25 +284,6 @@ def test_rebuild_on_jax_poses(jax_run, sequence):
     assert (np.abs(rad - 2.5) < 0.7).mean() > 0.95
 
 
-def test_integrate_sequence_at_known_poses():
-    """``tests/test_slam_loop.py::test_integrate_sequence_at_known_poses``
-    through both packages: the same live points within 0.5% and within
-    1e-5 m where both pools hold a point at a slot, and the JAX test's
-    bound on the port's map."""
-    depths, gt = jslam.synthetic_panorama_sequence(6, H, W, JK, seed=1, depth_noise=0.0, sweep_deg=60.0)
-    jmap = jslam.integrate_sequence(depths, gt, JK, map_capacity=8 * H * W)
-    tmap = tslam.integrate_sequence(depths, gt, K, map_capacity=8 * H * W, device="cpu")
-    jvalid, tvalid = np.asarray(jmap.valid), tmap.valid.numpy()
-    assert abs(int(tvalid.sum()) - int(jvalid.sum())) <= 0.005 * jvalid.sum()
-    both = jvalid & tvalid
-    assert both.sum() >= 0.99 * jvalid.sum()
-    close = np.all(np.abs(tmap.points.numpy()[both] - np.asarray(jmap.points)[both]) < 1e-5, axis=1)
-    assert close.mean() > 0.99
-    pts = tmap.points[tmap.valid].numpy()
-    rad = np.linalg.norm(pts[:, [0, 2]], axis=1)
-    assert (np.abs(rad - 2.5) < 0.7).mean() > 0.98
-
-
 @pytest.fixture
 def world_of_one():
     """A gloo world of one in this process (``make_mesh`` makes it),
@@ -342,30 +312,3 @@ def test_sharded_ba_runs(jax_run, world_of_one):
     assert len(got) == len(want)
     for a, b in zip(want, got):
         np.testing.assert_allclose(b, a, rtol=0, atol=1e-4)
-
-
-def test_scanned_front_end_takes_one_pass(monkeypatch):
-    """``run_slam(frontend="scanned")`` takes its odometry from one pass of
-    the scanned driver's step (the public driver makes three timed passes
-    and, on the card, an untimed one): the same poses as the public driver,
-    a third of its steps."""
-    from cilantro_tpu_torch.slam import driver, scan
-
-    k = CameraIntrinsics.make(100.0, 100.0, 31.5, 23.5)
-    depths, _ = tslam.synthetic_sequence(5, 48, 64, k, seed=3)
-    steps = []
-    real = scan.scan
-
-    def counted(step, *args, **kwargs):
-        def one(carry, x):
-            steps.append(1)
-            return step(carry, x)
-        return real(one, *args, **kwargs)
-
-    monkeypatch.setattr(driver, "scan", counted)
-    _, public = driver.run_fusion_sequence_scanned(depths, k, device="cpu")
-    n_public = len(steps)
-    _, one_pass = driver._fusion_scanned(depths, k, None, FusionConfig(), torch.device("cpu"), None, 1)
-    assert n_public == 3 * (len(depths) - 1) and len(steps) - n_public == len(depths) - 1
-    for a, b in zip(public.poses, one_pass.poses):
-        assert np.array_equal(a, b)
