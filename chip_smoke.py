@@ -312,7 +312,27 @@ in order; any failure raises and exits non-zero without the final line:
     stride of 1, 2 and 4 of the B = 8 ICP source (those and the B = 8 ICP
     stream also with the L2 cleared before each run); then a
     ``{"gather_designs": ...}`` line with each stream's time as built
-    against the first design.
+    against the first design;
+38. every example of ``cilantro_tpu_torch/examples/`` through its
+    ``main([..., "--device", "cuda", "--out", tmp])`` at its default,
+    full-width input (the 120,000-point height field, 640x480 frames, the
+    SLAM demo's 48 frames of 96x128): the truth each one prints held to
+    its bound (:func:`example_truth`: rigid ICP's max abs error < 1e-3,
+    fusion's ATE < 1 mm, the SLAM loop closed and the drift cut, the
+    splat ATE < 2 mm and each batched warp stream < 10 mm, the planted
+    RANSAC transform, the blobs and rings' labels, the PLY round trip
+    exact, ...), the host-code examples line for line their CPU run, host
+    s, each kernel's launches (counts set to 0 just before each example)
+    and each kernel's last call there bit for bit against its plain
+    version, timed beside its bound; then an ``{"examples_paths": ...}``
+    line;
+39. ``dryrun_multichip``: (a) ``dryrun_multichip(1)`` at world size 1
+    over NCCL (launches counted from 0, each kernel held bit for bit on
+    its last call at each input shape), then each of its parts alone with
+    host and CUDA-event ms; (b) two gloo ranks on the one card as
+    subprocesses (``--dryrun-rank``), each part's ms on each rank and
+    every replicated output the same bits on both; then a
+    ``{"dryrun_paths": ...}`` line.
 
 Before phase 23 one empty launch (``torch.cuda._sleep(0)``) is timed as in
 phase 2, beside the gather's ICP-stream time and bound (informational).
@@ -338,7 +358,10 @@ rotation kernel its ``sharded_launches`` on each phase 35 path), the
 last call on each path at each input shape and ``k``, and timed beside
 its bound: the rotation kernel on ``ransac_transform``'s 1,024 minimal
 fits and on its re-estimate, the compact kNN kernel on the components
-chain and on mean shift).
+chain and on mean shift), the ``examples_paths`` line on phase 38 (by
+example; a scanned driver's wrappers run at its warm-up step and its
+capture, as in phases 21-22) and the ``dryrun_paths`` line on phase 39
+(and each kernels-line entry its ``sharded_launches`` on phase 39a).
 
 Every line of standard output before the last two is one JSON object. The
 line before the last is the card's name and power limit as ``nvidia-smi``
@@ -351,6 +374,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -594,12 +618,11 @@ def code_coherence(code, width) -> float:
     return float((c == c[..., :1]).all(-1).float().mean())
 
 
-def path_frame_checks(splat, kept):
+def path_frame_checks(splat, kept, case="splat path frame"):
     """Phase 3b: each splat kernel against its plain version, bit for bit,
     on the inputs of its last call on the main path, timed as in phase 2
-    beside its byte bound (phase 2's formulas). Returns the kernel ms by
-    name."""
-    case = "splat path frame"
+    beside its byte bound (phase 2's formulas). Returns each kernel's
+    ``{ms, plain_ms, bound_ms, max_abs_err}`` by name."""
     out = {}
     for name in PATH_KERNELS:
         args, r = kept[name]
@@ -626,14 +649,13 @@ def path_frame_checks(splat, kept):
                          code_coherence_4=code_coherence(code, 4),
                          distinct_codes=int(torch.unique(code).numel()), shape=list(rows.shape))
         if name in splat.kernel_design:
-            stats.update(design=dict(splat.kernel_design[name]),
-                         previous_design_ms=PREVIOUS_SPLAT_MS[(name, case)])
-        ms = device_ms(kernel)
-        emit(phase="kernel_vs_plain", tolerance="bit-exact", name=name, case=case,
-             max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)), ms=ms,
-             plain_ms=device_ms(plain), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-             bound_by="bytes", bytes=nbytes, **stats)
-        out[name] = ms
+            stats["design"] = dict(splat.kernel_design[name])
+            if (name, case) in PREVIOUS_SPLAT_MS:
+                stats["previous_design_ms"] = PREVIOUS_SPLAT_MS[(name, case)]
+        entry = dict(max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)), ms=device_ms(kernel),
+                     plain_ms=device_ms(plain), bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        emit(phase="kernel_vs_plain", tolerance="bit-exact", name=name, case=case, **entry, bytes=nbytes, **stats)
+        out[name] = entry
     return out
 
 
@@ -4184,6 +4206,323 @@ def two_rank_paths(depths, k, ref, card):
                                   "pipeline", "checks": checks}]
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 38: the examples; phase 39: dryrun_multichip.
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("rigid_icp", "fusion", "slam", "batched_serving", "non_rigid_icp", "normals_and_downsampling",
+            "kd_tree", "robust_normals", "ransac_and_clustering", "spectral_and_components", "mean_shift",
+            "io_and_images", "convex_hull", "space_regions", "mds_and_pca", "image_viewer", "visualizer")
+EXAMPLES_WITH_OUT = ("fusion", "io_and_images", "image_viewer", "visualizer")
+# The examples whose every printed line the CPU run repeats: host hull code,
+# exact set tests and exact round trips.
+EXAMPLES_AS_ON_CPU = ("io_and_images", "convex_hull", "space_regions")
+NUMBER = re.compile(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?")
+
+
+def printed(out: str, start: str) -> list:
+    """The numbers on the one printed line that starts with ``start``."""
+    found = [ln for ln in out.splitlines() if ln.startswith(start)]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} printed lines start with {start!r}:\n{out}")
+    return [float(x) for x in NUMBER.findall(found[0])]
+
+
+def example_truth(name: str, out: str, out_dir: str) -> dict:
+    """The figures of merit an example printed, each held to its planted
+    truth (the bounds of ``tests/test_torch_examples_*.py``, here at the
+    full-width default input); raises on the first that misses."""
+    fig, ok = {}, True
+    if name == "rigid_icp":
+        fig["max_abs_error"] = printed(out, "max abs error:")[0]
+        ok = fig["max_abs_error"] < 1e-3
+    elif name == "fusion":
+        frames, fig["ms_per_frame"], fig["ate_mm"], fig["map_points"] = printed(out, "12 frames,")
+        ok = fig["ate_mm"] < 1.0 and fig["map_points"] > 0.9 * H * W
+        ok &= all(os.path.getsize(os.path.join(out_dir, f)) > 0 for f in ("fusion_map.ply", "fusion_poses.npy"))
+    elif name == "slam":
+        fig["keyframes"], fig["loop_closures"] = printed(out, "keyframes:")
+        fig["max_orientation_error_deg"] = printed(out, "max orientation error:")
+        fig["ate_cm"] = printed(out, "ATE:")
+        fig["map_points"], fig["front_end_ms_per_frame"], fig["total_s"] = printed(out, "rebuilt map:")
+        ok = (fig["loop_closures"] >= 1 and fig["max_orientation_error_deg"][1] < fig["max_orientation_error_deg"][0]
+              and fig["ate_cm"][1] <= fig["ate_cm"][0])
+    elif name == "batched_serving":
+        fig["splat_ms_per_frame"], fig["splat_fps"], fig["splat_ate_mm"], fig["live_surfels"], _ = printed(
+            out, "splat fusion:")
+        warp = next(ln for ln in out.splitlines() if ln.startswith("batched warp x4:"))
+        fig["warp_outer_iterations"] = printed(out, "batched warp x4:")[1]
+        fig["warp_median_errors_mm"] = [float(e) for e in re.findall(r"([\d.]+)mm", warp)]
+        ok = (fig["splat_ate_mm"] < 2.0 and "converged [True, True, True, True]" in warp
+              and len(fig["warp_median_errors_mm"]) == 4 and max(fig["warp_median_errors_mm"]) < 10.0)
+    elif name == "non_rigid_icp":
+        fig["control_nodes"] = int(next(ln for ln in out.splitlines() if ln.endswith("control nodes")).split()[0])
+        fig["outer_iterations"] = printed(out, "done in")[1]
+        fig["median_error_mm"] = printed(out, "median error")[0]
+        ok = fig["median_error_mm"] < 10.0  # half the 20 mm bend
+    elif name == "normals_and_downsampling":
+        fig["bins_1cm"] = printed(out, "downsample @1cm:")[1]
+        fig["median_abs_dot"] = printed(out, "|dot| vs the input's stored normals")[-1]
+        ok = fig["median_abs_dot"] > 0.99
+    elif name == "kd_tree":
+        fig["mean_nn_dist_mm"] = printed(out, "kNN k=8:")[-1]
+        agree, total = printed(out, "grid backend:")
+        fig["grid_agrees"] = [agree, total]
+        ok = agree == total
+    elif name == "robust_normals":
+        fig["normal_error_deg"] = printed(out, "clean-point normal error:")
+        ok = fig["normal_error_deg"][1] < 2.0 and fig["normal_error_deg"][1] < fig["normal_error_deg"][0]
+        ok &= "inlier query valid=True, outlier query valid=False" in out
+    elif name == "ransac_and_clustering":
+        n = int(out.splitlines()[0].split()[0])
+        plane = printed(out, "RANSAC plane:")
+        fig["plane"] = dict(normal=plane[:3], offset=plane[3], inliers=plane[4])
+        fig["transform"] = printed(out, "RANSAC transform:")
+        fig["components"] = printed(out, "connected components:")
+        ok = (abs(plane[2]) > 0.95 and abs(plane[3]) < 0.05 and fig["transform"][0] < 1e-3
+              and fig["transform"][1] < 1e-3 and fig["transform"][2] == 1500
+              and fig["components"][0] == 1 and fig["components"][2] >= 0.99 * n)
+    elif name == "spectral_and_components":
+        fig["purity"] = [printed(out, f"spectral [{kind:12s}]")[-2]
+                         for kind in ("unnormalized", "normalized", "random_walk")]
+        n, segments, _, largest = printed(out, "connected components (")[:4]
+        fig["components"] = dict(points=n, segments=segments, largest=largest)
+        ok = all(p == 600 for p in fig["purity"]) and segments == 1 and largest >= 0.99 * n
+    elif name == "mean_shift":
+        fig["flat"] = printed(out, "mean shift [flat    ]")
+        fig["gaussian"] = printed(out, "mean shift [gaussian]")
+        fig["capped"] = printed(out, "mean shift [capped  ]")
+        ok = all(f[0] == 4 and f[2] < 50 and f[3] == 1200 for f in (fig["flat"], fig["gaussian"]))
+        ok &= fig["capped"][0] == 4
+    elif name == "io_and_images":
+        fig["matrix_max_err"] = [printed(out, f"matrix I/O ({k}):")[0] for k in ("binary", "text")]
+        fig["cloud_to_depth_max_err_m"] = printed(out, "cloud→depth roundtrip:")[0]
+        ok = (fig["matrix_max_err"] == [0.0, 0.0] and fig["cloud_to_depth_max_err_m"] == 0.0
+              and "points exact=True, colors within 1/255=True" in out)
+    elif name == "mds_and_pca":
+        fig["mds"] = printed(out, "MDS:")
+        fig["pca_eigenvalues"] = printed(out, "PCA eigenvalues")[3:]
+        ok = fig["mds"][0] == 2 and fig["mds"][2] < 1e-5 and "basis determinant +1.000" in out
+    elif name == "image_viewer":
+        fig["depth_range_m"] = printed(out, "rendered")[-2:]
+        ok = 0 < fig["depth_range_m"][0] < fig["depth_range_m"][1]
+        ok &= all(os.path.getsize(os.path.join(out_dir, f"image_viewer_{k}.html")) > 10_000 for k in ("rgb", "depth"))
+    elif name == "visualizer":
+        ok = all(os.path.getsize(os.path.join(out_dir, f"visualizer_window{w}.html")) > 10_000 for w in (1, 2))
+    elif name in ("convex_hull", "space_regions"):
+        pass  # held line for line to the CPU run
+    else:
+        raise AssertionError(f"no truth for example {name}")
+    if not ok:
+        raise AssertionError(f"example {name}: {fig}\n{out}")
+    return fig
+
+
+def run_example(name, argv):
+    """``main(argv)`` of ``cilantro_tpu_torch.examples.<name>``: ``(what it
+    printed, host s)``; a non-zero return raises."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"cilantro_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"example {name} returned {rc}:\n{buf.getvalue()}")
+    return buf.getvalue(), seconds
+
+
+def examples_paths(card):
+    """Phase 38: every example through its ``main`` on the card at its
+    default input (the 120,000-point height field, 640x480 frames, the
+    SLAM demo's 48 frames of 96x128), its printed truth held
+    (:func:`example_truth`), its launches counted from 0, and each kernel
+    it launched held bit for bit against its plain version on its last
+    call there and timed beside its bound. The three host-code examples
+    repeat every line on the CPU; ``mds_and_pca`` its numbers within 1e-4
+    (the MDS RMS error, float32 noise, below 1e-5 on both)."""
+    import tempfile
+
+    from cilantro_tpu_torch.slam import splat
+    from cilantro_tpu_torch.slam import splat_fusion as sf
+
+    t_phase = time.perf_counter()
+    paths, held = [], {}
+    with tempfile.TemporaryDirectory(prefix="examples_", dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        for name in EXAMPLES:
+            out_dir = os.path.join(tmp, name)
+            argv = ["--device", "cuda"] + (["--out", out_dir] if name in EXAMPLES_WITH_OUT else [])
+            if name == "slam":
+                argv += ["--cache", out_dir]
+            reset_all_counts()
+            splat.reset_launch_counts()
+            kept, splat_kept = {}, {}
+            with last_kernel_calls(kept, PARALLEL_WRAPPERS), path_recorded(sf, splat_kept):
+                out, seconds = run_example(name, argv)
+            launches = {k_: v for k_, v in {**all_counts(), **splat.launch_counts}.items() if v}
+            figures = example_truth(name, out, out_dir)
+            cpu_same = None
+            if name in EXAMPLES_AS_ON_CPU or name == "mds_and_pca":
+                cpu_out, _ = run_example(name, ["--device", "cpu"] + (["--out", out_dir + "_cpu"]
+                                                                       if name in EXAMPLES_WITH_OUT else []))
+                if name == "mds_and_pca":
+                    a, b = out.splitlines(), cpu_out.splitlines()
+                    cpu_same = len(a) == len(b) and all(
+                        np.allclose(printed(x, x[:12]), printed(y, y[:12]), rtol=1e-4, atol=0)
+                        for x, y in zip(a[1:], b[1:])) and printed(b[0], "MDS:")[2] < 1e-5
+                else:
+                    cpu_same = out == cpu_out
+                if not cpu_same:
+                    raise AssertionError(f"example {name}: card and CPU print\n{out}\n---\n{cpu_out}")
+            entries = warp_kernel_checks({k_: v for k_, v in kept.items() if k_ in launches}, launches,
+                                         f"38 {name}", phase="examples_kernel_vs_plain", quick_pairs=QUICK_PAIRS)
+            if splat_kept:
+                for kname, e in path_frame_checks(splat, splat_kept, case=f"38 {name}: last call").items():
+                    entries[kname] = dict(e, launches=launches.get(kname, 0))
+            for kname, e in entries.items():
+                held[f"38 {name} / {kname}"] = {f: e.get(f) for f in ("launches", "max_abs_err", "ms", "plain_ms",
+                                                                       "bound_ms", "bound_by", "library_ms")}
+            emit(phase="example", name=name, argv=argv, host_s=seconds, launches=launches, figures=figures,
+                 same_as_cpu=cpu_same, printed=out.splitlines(), card=card)
+            paths.append({"phase": 38, "path": f"examples.{name}", "host_s": seconds, "launches": launches,
+                          "held_bit_exact": sorted(entries)})
+    emit(phase="examples_done", phase_s=time.perf_counter() - t_phase)
+    return paths, held
+
+
+DRYRUN_REPLICATED = {
+    "tournament_icp": ("linear", "translation", "iterations"), "ring_icp": ("linear", "translation", "iterations"),
+    "ba": ("linear", "translation", "residual"), "fusion_640x480": ("poses", "widx"),
+    "fusion_320x240": ("poses", "widx"), "pipeline": ("poses", "iterations", "data"),
+    "warp": ("linear", "translation", "cg_iterations"),
+}
+
+
+def dryrun_parts(world: int, dev, timeout=None) -> dict:
+    """Each part of ``entry.dryrun_multichip(world)`` on this rank
+    (``entry._dryrun_parts``: its order, meshes, draws and shapes), each
+    timed by :func:`event_ms`: ``{part: {host_ms, events_ms, outputs...}}``
+    (numpy; ranks past 1 have no pipeline part)."""
+    from cilantro_tpu_torch import entry
+
+    times = {}
+
+    def run(part, fn):
+        h_ms, e_ms, res = event_ms(fn)
+        times[part] = dict(host_ms=h_ms, events_ms=e_ms)
+        return res
+
+    def tf(res):
+        return dict(zip(("linear", "translation"), tf_numpy(res[0])), iterations=int(res[1]))
+
+    unpack = {
+        "tournament_icp": tf, "ring_icp": tf,
+        "ba": lambda r: dict(zip(("linear", "translation"), tf_numpy(r[0])), landmarks=r[1].cpu().numpy(),
+                             residual=float(r[2])),
+        "pipeline": lambda r: dict(poses=np.stack(r[1].poses), iterations=list(r[1].icp_iterations),
+                                   data=r[0].data.cpu().numpy()),
+        "warp": lambda r: dict(zip(("linear", "translation"), tf_numpy(r[0])), cg_iterations=int(r[2])),
+    }
+    fusion = lambda r: dict(poses=np.stack(r[1]), widx=r[2].cpu().numpy(), shard_rows=int(r[0].shape[0]))  # noqa: E731
+    return {part: dict(times[part], **unpack.get(part, fusion)(res))
+            for part, res in entry._dryrun_parts(world, dev, timeout=timeout, run=run).items() if res is not None}
+
+
+def dryrun_rank_main(argv) -> int:
+    """Phase 39b's rank: ``python3 chip_smoke.py --dryrun-rank RANK WORLD
+    STORE OUT``. One of two gloo ranks on the one card: every part of the
+    dryrun on its shards, results saved to ``OUT/dryrun<RANK>.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    rank, world, store, out_dir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.cuda.set_device(0)
+    timeout = datetime.timedelta(seconds=RANK_GROUP_TIMEOUT_S)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world, timeout=timeout)
+    t0 = time.perf_counter()
+    out = dryrun_parts(world, "cuda", timeout)
+    out["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(out_dir, f"dryrun{rank}.pt"))
+    dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "seconds": out["seconds"]}), flush=True)
+    return 0
+
+
+def dryrun_paths(card):
+    """Phase 39: ``dryrun_multichip`` on the card. (a) World size 1 over
+    NCCL in this process: the entry point once with its launches counted
+    from 0 and each kernel held bit for bit on its last call at each input
+    shape, then each part alone with host and CUDA-event ms. (b) Two gloo
+    ranks on the one card as subprocesses (``--dryrun-rank``): each part's
+    ms on each rank, and every replicated output the same bits on both."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cilantro_tpu_torch.entry import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    paths, held, sharded = [], {}, {}
+    if dist.is_initialized():
+        raise AssertionError("phase 39 starts with no process group")
+    h_ms, e_ms, (_, launches, kept) = event_ms(lambda: counted_run(lambda: dryrun_multichip(1, device="cuda")))
+    if dist.is_initialized():
+        raise AssertionError("dryrun_multichip(1) left its world of one behind")
+    for kname in ("coalesced_gather", "nn1_fused", "project_to_rotation"):
+        if not launches.get(kname):
+            raise AssertionError(f"dryrun_multichip(1) launched no {kname}: {launches}")
+    hold_path("39a dryrun_multichip(1)", launches, kept, held, sharded)
+    parts = dryrun_parts(1, "cuda")
+    dist.destroy_process_group()
+    emit(phase="dryrun_world_one", backend="nccl", host_ms=h_ms, events_ms=e_ms, launches=launches,
+         parts={p: {k_: v[k_] for k_ in ("host_ms", "events_ms")} for p, v in parts.items()}, card=card)
+    paths.append({"phase": 39, "path": "dryrun_multichip(1), world 1 (NCCL)", "host_ms": h_ms, "events_ms": e_ms,
+                  "launches": launches, "parts_events_ms": {p: v["events_ms"] for p, v in parts.items()}})
+
+    with tempfile.TemporaryDirectory(prefix="dryrun_", dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        cmd = [sys.executable, os.path.abspath(__file__), "--dryrun-rank"]
+        procs = [subprocess.Popen(cmd + [str(r), "2", os.path.join(tmp, "store"), tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                left = max(1.0, RANK_WAIT_S - (time.perf_counter() - t_phase))
+                logs.append(p.communicate(timeout=left)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"phase 39 rank {r} exited {p.returncode}:\n{log[-3000:]}")
+        res = [torch.load(os.path.join(tmp, f"dryrun{r}.pt"), weights_only=False) for r in range(2)]
+    replicated = {part: all(np.array_equal(np.asarray(res[1][part][f]), np.asarray(res[0][part][f]))
+                            for f in fields) for part, fields in DRYRUN_REPLICATED.items()}
+    from_world_one = {part: max(float(np.abs(res[0][part][f] - parts[part][f]).max()) for f in ("linear", "translation"))
+                      for part in ("tournament_icp", "ring_icp")}
+    emit(phase="dryrun_two_ranks", ranks=2, backend="gloo", device="one card", replicated_identical=replicated,
+         transform_diff_from_world_one=from_world_one, rank_seconds=[r["seconds"] for r in res],
+         parts={p: {"host_ms": [r[p]["host_ms"] for r in res], "events_ms": [r[p]["events_ms"] for r in res]}
+                for p in DRYRUN_REPLICATED}, phase_s=time.perf_counter() - t_phase, card=card)
+    if not all(replicated.values()):
+        raise AssertionError(f"phase 39b: replicated outputs differ across ranks: {replicated}")
+    paths.append({"phase": 39, "path": "dryrun parts on 2 gloo ranks on one card",
+                  "replicated_identical": replicated,
+                  "parts_events_ms": {p: [r[p]["events_ms"] for r in res] for p in DRYRUN_REPLICATED}})
+    return paths, held, sharded
+
+
 KERNEL_SOURCES = {
     "knn_full": "cilantro_tpu_torch/csrc/knn_kernels.cu",
     "knn_compact": "cilantro_tpu_torch/csrc/knn_kernels.cu",
@@ -4297,7 +4636,7 @@ def main() -> int:
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["path"] = "splat fusion, 16 frames"
-        entry["path_frame_ms"] = path_frame_ms[entry["name"]]
+        entry["path_frame_ms"] = path_frame_ms[entry["name"]]["ms"]
 
     # 5. nn1 kernels vs plain on the card.
     from cilantro_tpu_torch.entry import _toy_pair
@@ -4439,6 +4778,15 @@ def main() -> int:
           flush=True)
     gather_entry["first_design_ms"] = ab["phase 11, integrate_rows"][first]
 
+    # 38-39. The examples through their main(), then dryrun_multichip at
+    # world size 1 over NCCL and on two gloo ranks.
+    ex_paths, ex_held = examples_paths(card)
+    print(json.dumps({"examples_paths": ex_paths, "held_bit_exact": ex_held}), flush=True)
+    dry_paths, dry_held, dry_launches = dryrun_paths(card)
+    print(json.dumps({"dryrun_paths": dry_paths, "held_bit_exact": dry_held}), flush=True)
+    for name, by_path in dry_launches.items():
+        sharded_launches.setdefault(name, {}).update(by_path)
+
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]
     kernels.append(gather_entry)
@@ -4457,4 +4805,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:  # one of phase 36's ranks
         sys.exit(rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dryrun-rank"]:  # one of phase 39's ranks
+        sys.exit(dryrun_rank_main(sys.argv[2:]))
     sys.exit(main())

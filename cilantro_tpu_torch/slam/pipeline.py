@@ -50,11 +50,15 @@ from .fusion import FusionConfig, FusionMap, fusion_step, init_map_from_frame, s
 from .scan import RUNS, scan
 
 
-def make_pipeline_mesh(devices=None, *, timeout=None) -> Union[Tuple[torch.device, torch.device], DeviceMesh]:
+def make_pipeline_mesh(
+    devices=None, *, timeout=None
+) -> Union[Tuple[torch.device, torch.device], DeviceMesh, None]:
     """Where the two stages run. In a process group of two or more ranks
     (or given such a ``DeviceMesh`` with the one axis ``"pipe"``): a
     ``("pipe",)`` mesh over ranks 0 and 1, the front end on rank 0 and the
-    tracker on rank 1. Otherwise the stages' devices ``(front end,
+    tracker on rank 1; ranks past 1 take part in making its group and get
+    None (the JAX module leaves devices past its first two idle).
+    Otherwise the stages' devices ``(front end,
     tracker)`` in this process: the first two of ``devices``, or the
     default card for both when it is None; both stages on one card run on
     two CUDA streams of it, on the CPU in order. Fewer than two devices
@@ -82,12 +86,14 @@ def make_pipeline_mesh(devices=None, *, timeout=None) -> Union[Tuple[torch.devic
     return front, tracker
 
 
-def _rank_mesh(timeout=None) -> DeviceMesh:
-    """A ``("pipe",)`` mesh over ranks 0 and 1 of the process group (every
-    rank calls it: it makes a group)."""
+def _rank_mesh(timeout=None) -> Optional[DeviceMesh]:
+    """A ``("pipe",)`` mesh over ranks 0 and 1 of the process group, None
+    on the other ranks (every rank calls it: it makes a group)."""
     from ..parallel.distributed import DEFAULT_TIMEOUT
 
     group = dist.new_group([0, 1], timeout=timeout or DEFAULT_TIMEOUT)
+    if dist.get_rank() >= 2:
+        return None
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh.from_group(group, device_type, mesh=[0, 1], mesh_dim_names=("pipe",))
 

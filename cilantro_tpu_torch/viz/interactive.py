@@ -734,6 +734,37 @@ class Visualizer:
         return out
 
 
+def _png_bytes(img: np.ndarray) -> bytes:
+    """A PNG file of an (H, W, 3) uint8 or [0, 1] float image: matplotlib's
+    ``imsave`` where matplotlib is installed (the JAX package's bytes),
+    else an 8-bit RGB PNG written here (the same pixels, other bytes)."""
+    import io as _io
+
+    try:
+        import matplotlib
+    except ImportError:
+        import struct
+        import zlib
+
+        if img.dtype != np.uint8:
+            img = (np.clip(img.astype(np.float32), 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        h, w = img.shape[:2]
+        rows = np.concatenate([np.zeros((h, 1), np.uint8), np.ascontiguousarray(img[..., :3]).reshape(h, 3 * w)],
+                              axis=1)
+
+        def chunk(kind, data):
+            return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+        return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    buf = _io.BytesIO()
+    plt.imsave(buf, img, format="png")
+    return buf.getvalue()
+
+
 class ImageViewer:
     """2D image display with zoom/pan — the reference's textured-quad
     ``ImageViewer`` (``image_viewer.hpp:10-55``) as a standalone HTML
@@ -746,22 +777,13 @@ class ImageViewer:
 
     def set_image(self, image: np.ndarray) -> "ImageViewer":
         """``image``: (H, W) scalar, (H, W, 3) float [0,1], or uint8."""
-        import io as _io
-
         img = _host(image)
         if img.dtype != np.uint8:
             img = np.clip(img.astype(np.float32), 0.0, 1.0)
             img = (img * 255.0 + 0.5).astype(np.uint8)
         if img.ndim == 2:
             img = np.stack([img] * 3, axis=-1)
-        import matplotlib
-
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        buf = _io.BytesIO()
-        plt.imsave(buf, img, format="png")
-        self._png_b64 = base64.b64encode(buf.getvalue()).decode("ascii")
+        self._png_b64 = base64.b64encode(_png_bytes(img)).decode("ascii")
         self._shape = img.shape[:2]
         return self
 

@@ -9,16 +9,19 @@ generation*:
   OWN z-buffer rasterizer (``core/rgbd.cloud_to_rgbd``) on the cloud's
   device; colors come from the cloud, a scalar channel via colormap, or
   normal shading (the ``RenderingProperties`` analogues);
-* :func:`save_cloud_png` / :func:`save_trajectory_png` — PNG artifacts via
-  matplotlib (host side). matplotlib is optional: it is imported when a PNG
-  writer is called, which raises ``ImportError`` where it is absent;
+* :func:`save_cloud_png` / :func:`save_trajectory_png` — PNG artifacts
+  (host side). matplotlib is optional: the image writers encode the PNG
+  themselves where it is absent (the same pixels); the plots import it
+  when called, which raises ``ImportError`` where it is absent;
 * :func:`dump_artifacts` — PLY + PNG bundle per run (map, trajectory), the
-  headless replacement for the fusion app's interactive view.
+  headless replacement for the fusion app's interactive view; without
+  matplotlib it leaves out the trajectory plot and says so in a warning.
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,7 +32,7 @@ from ..core.containers import PointCloud
 from ..core.rgbd import CameraIntrinsics, cloud_to_rgbd
 from ..core.transforms import Transform
 from ..utils.colormap import colormap
-from .interactive import _host
+from .interactive import _host, _png_bytes
 
 
 def auto_camera(points, valid=None, device=None):
@@ -105,13 +108,9 @@ def render_cloud_image(
 
 
 def save_cloud_png(path: str, cloud: PointCloud, **kwargs) -> None:
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
     img = render_cloud_image(cloud, **kwargs)
-    plt.imsave(path, np.clip(img, 0, 1))
+    with open(path, "wb") as f:
+        f.write(_png_bytes(np.clip(img, 0, 1)))
 
 
 def save_trajectory_png(
@@ -166,9 +165,13 @@ def dump_artifacts(
             color_by="normal" if cloud.normals is not None else "z",
         )
     if poses is not None:
-        save_trajectory_png(
-            os.path.join(out_dir, f"{prefix}_trajectory.png"), poses, gt_poses
-        )
+        try:
+            save_trajectory_png(
+                os.path.join(out_dir, f"{prefix}_trajectory.png"), poses, gt_poses
+            )
+        except ImportError as e:
+            warnings.warn(f"dump_artifacts: no {prefix}_trajectory.png ({e}); the other artifacts are written",
+                          RuntimeWarning, stacklevel=2)
         np.save(
             os.path.join(out_dir, f"{prefix}_poses.npy"), np.stack([_host(p) for p in poses])
         )

@@ -222,6 +222,35 @@ def test_package_reexports(pkg):
         assert getattr(obj, "__module__", getattr(obj, "__name__", "")).startswith("cilantro_tpu_torch"), name
 
 
+def test_entry_points_keep_jax_signatures():
+    """``cilantro_tpu_torch.entry`` has both driver entry points of the JAX
+    package's ``__graft_entry__.py``: ``entry`` and ``dryrun_multichip``
+    with JAX's parameters, then the keyword-only ``device``."""
+    import __graft_entry__ as jentry
+    from cilantro_tpu_torch import entry as tentry
+
+    for name in ("entry", "dryrun_multichip"):
+        _check_signature(f"entry.{name}", getattr(jentry, name), getattr(tentry, name))
+        extra = list(inspect.signature(getattr(tentry, name)).parameters.values())[
+            len(inspect.signature(getattr(jentry, name)).parameters):]
+        assert [(p.name, p.default) for p in extra] == [("device", "cuda")], name
+    device = inspect.signature(tentry.dryrun_multichip).parameters["device"]
+    assert device.kind is inspect.Parameter.KEYWORD_ONLY
+
+
+def test_every_example_has_a_module():
+    """Each ``examples/<name>.py`` has ``cilantro_tpu_torch/examples/<name>.py``
+    with a ``main(argv=None)``."""
+    from pathlib import Path
+
+    names = sorted(p.stem for p in (Path(__file__).resolve().parents[1] / "examples").glob("*.py"))
+    assert len(names) == 17
+    for name in names:
+        mod = importlib.import_module(f"cilantro_tpu_torch.examples.{name}")
+        params = list(inspect.signature(mod.main).parameters.values())
+        assert [(p.name, p.default) for p in params] == [("argv", None)], name
+
+
 # The members Queue 3 found missing, against JAX's behaviour.
 
 

@@ -69,8 +69,43 @@ def test_worker_scripts_load_no_jax():
         [sys.executable, "-c", _WORKER_PROBE], cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert "LOADED [] ['ba', 'desync', 'fusion', 'icp', 'pipeline', 'warp']" in out.stdout, out.stdout
+    assert "LOADED [] ['ba', 'desync', 'dryrun', 'fusion', 'icp', 'pipeline', 'warp']" in out.stdout, out.stdout
 
+
+# Slice I: the examples and the multi-device dryrun run with JAX and the
+# JAX package unimportable (their imports inside functions included).
+_SLICE_I_PROBE = """
+import contextlib, io, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["cilantro_tpu"] = None
+import torch
+torch.set_num_threads(1)  # the test run's workers share the cores
+import cilantro_tpu_torch.examples as ex
+from cilantro_tpu_torch.entry import dryrun_multichip
+names = sorted(m.name for m in pkgutil.iter_modules(ex.__path__) if not m.name.startswith("_"))
+for name in names:
+    __import__(f"cilantro_tpu_torch.examples.{name}")
+dryrun_multichip(1, device="cpu")
+with contextlib.redirect_stdout(io.StringIO()):
+    for name in ("convex_hull", "mds_and_pca", "mean_shift"):
+        assert sys.modules[f"cilantro_tpu_torch.examples.{name}"].main(["--device", "cpu"]) == 0
+loaded = sorted(
+    name for name, mod in sys.modules.items()
+    if mod is not None and (name.split(".")[0] in ("jax", "jaxlib", "cilantro_tpu"))
+)
+print("LOADED", loaded)
+print("EXAMPLES", " ".join(names))
+"""
+
+
+def test_examples_and_dryrun_run_without_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _SLICE_I_PROBE], cwd=REPO, capture_output=True, text=True, timeout=180,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "LOADED []" in out.stdout, out.stdout
+    names = set(out.stdout.split("EXAMPLES", 1)[1].split())
+    assert names == {p.stem for p in (REPO / "examples").glob("*.py")}, names
 
 def test_cuda_default_raises_without_cuda(monkeypatch):
     from cilantro_tpu_torch import resolve_device

@@ -37,6 +37,9 @@ SLAM_HW, SLAM_FRAMES = (72, 96), 48
 SLAM_KW = dict(keyframe_every=5, loop_min_separation=3, loop_edge_weight=5.0, run_ba=True)
 SLAM_FUSION = dict(localize_stride=1, icp_iterations=8)
 FUSION_HW, FUSION_K = (48, 64), (100.0, 100.0, 31.5, 23.5)
+# The dryrun's two fusion runs, cut to FUSION_HW: (frames, pool slots per
+# pixel), as ``entry.dryrun_multichip`` runs them at 640x480 and 320x240.
+DRYRUN_FUSION = {"big": (2, 4), "small": (3, 2)}
 
 
 def icp_case(n=4096, seed=0):
@@ -286,6 +289,40 @@ def pipeline(rank, world, inputs, dev):
     out["scanned"] = dict(poses=np.stack(met.poses), iterations=met.icp_iterations, data=_np(fmap.data))
     return out
 
+
+@suite
+def dryrun(rank, world, inputs, dev):
+    """Every part of ``entry.dryrun_multichip`` at WORLD ranks
+    (``entry._dryrun_parts``: its order, meshes and draws), the fusion
+    runs and the pipeline on the inputs' small frames. Ranks 0 and 1 also
+    run the port's scanned driver on the pipeline's frames."""
+    from cilantro_tpu_torch import entry
+    from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
+    from cilantro_tpu_torch.slam import FusionConfig
+    from cilantro_tpu_torch.slam.driver import run_fusion_sequence_scanned
+
+    k = CameraIntrinsics.make(*FUSION_K)
+    runs = [(name, list(inputs[f"{name}_depths"]), k, int(inputs[f"{name}_capacity"])) for name in DRYRUN_FUSION]
+    parts = entry._dryrun_parts(world, dev, fusion_runs=runs, timeout=TIMEOUT[0])
+    out = {}
+    for name in ("tournament", "ring"):
+        tf, it = parts[f"{name}_icp"]
+        out[name] = dict(_tf(tf), iterations=int(it))
+    poses, lmks, resid = parts["ba"]
+    out["ba"] = dict(_tf(poses), landmarks=_np(lmks), residual=float(resid))
+    for name in DRYRUN_FUSION:
+        data, poses, widx = parts[name]
+        out[name] = dict(data=_np(data), poses=np.stack(poses), widx=_np(widx))
+    if parts["pipeline"] is not None:
+        fmap, met = parts["pipeline"]
+        out["pipeline"] = dict(poses=np.stack(met.poses), iterations=met.icp_iterations, data=_np(fmap.data))
+        depths = runs[-1][1]
+        fmap, met = run_fusion_sequence_scanned(depths, k, map_capacity=2 * depths[0].size,
+                                                cfg=FusionConfig(localize_stride=2), device=dev)
+        out["scanned"] = dict(poses=np.stack(met.poses), iterations=met.icp_iterations, data=_np(fmap.data))
+    tf, _, cg = parts["warp"]
+    out["warp"] = dict(_tf(tf), cg_iterations=int(cg))
+    return out
 
 def main():
     name, rank, world, store, out_dir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
