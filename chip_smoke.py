@@ -114,9 +114,10 @@ in order; any failure raises and exits non-zero without the final line:
     plain version syncs, so it is timed on the host clock), the
     compact wrapper's full-kernel fallback on 16 query tiles, the full
     kernel at phase 16's shape and at 4096² random points with k = 1, 12
-    and 65, beside ``torch.cdist`` + ``topk``; each case with the kernel's
-    launch parameters (key splits, queries a thread, where the slots live)
-    and the kernel time the previous design took on the same case;
+    and 65 (then 33 and 200 too), beside ``torch.cdist`` + ``topk``; each
+    case with the kernel's launch parameters (its design, key splits,
+    queries a thread or a warp, where the slots live) and the kernel time
+    the previous design took on the same case;
 19. ``with_normals_knn(k=12)`` on a 160×120 frame on the card (pruned
     kernel path) and on the CPU (the tiled scan): |cos| ≥ 0.999 on at
     least 99% of the points valid in both;
@@ -332,7 +333,20 @@ in order; any failure raises and exits non-zero without the final line:
     host and CUDA-event ms; (b) two gloo ranks on the one card as
     subprocesses (``--dryrun-rank``), each part's ms on each rank and
     every replicated output the same bits on both; then a
-    ``{"dryrun_paths": ...}`` line.
+    ``{"dryrun_paths": ...}`` line;
+40. the full kNN kernel's two designs, a thread per query (the earlier
+    design) and a warp per query, in one A/B (``cilantro_tpu_torch/tools/knn_full_ab.py``,
+    reached through the internal launcher with a forced plan): every
+    ``knn_full_rows`` call of phases 14-39 is kept, and on the ones that
+    decide the route (mean shift's merge at k = 33 and its capped path at
+    k = 513, the ``kd_tree`` example's radius search at 2,000 × 120,000,
+    the rings of ``spectral_and_components``, the dryrun's ICP pair,
+    phase 16's call, the spectral graph, the ``kd_tree`` kNN,
+    ``robust_normals``, ``batched_serving``) and phase 18's random 4096²
+    cloud at k = 1, 12, 33, 65 and 200 each design is held bit for bit
+    against the plain version and timed visiting the designs forward and
+    backward, beside ``torch.cdist`` + ``topk``, the bound and an empty
+    launch; then a ``{"knn_full_designs": ...}`` line.
 
 Before phase 23 one empty launch (``torch.cuda._sleep(0)``) is timed as in
 phase 2, beside the gather's ICP-stream time and bound (informational).
@@ -1428,16 +1442,22 @@ def pool_card_vs_cpu(cg, depths, k, card_poses):
 
 KNN_K = 12
 FULL_PATH_POINTS = 8192  # below it Q·M < 2^26: knn takes the full kernel
-# Kernel ms of the previous kNN kernels (one thread per query, per-key
-# insertion into shared-memory slots) on the phase 18 cases, NVIDIA H100
-# 80GB HBM3 at 700 W, PERF.md §6 table: (kernel, case, k, exclude_diag) -> ms.
+# Kernel ms of each kNN kernel's previous design on the phase 18 cases,
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6 table: (kernel, case, k,
+# exclude_diag) -> ms. The compact kernel's is its first design (one thread
+# per query, per-key insertion into shared-memory slots); the full kernel's
+# is its thread-per-query design (the route's pick below 33 neighbours on
+# large grids), timed on the rows padded to 512 / 2,048 as knn_fused once
+# passed them, and at k = 33 and 200 by phase 40 on the real rows.
 PREVIOUS_KNN_MS = {
     ("knn_compact", "phase 14 list", 12, False): 13.354623794555664,
     ("knn_compact", "phase 14 list", 12, True): 13.241791725158691,
-    ("knn_full", "phase 16", 12, False): 4.936319828033447,
-    ("knn_full", "random 4096", 1, False): 0.39635199308395386,
-    ("knn_full", "random 4096", 12, False): 1.0279359817504883,
-    ("knn_full", "random 4096", 65, False): 8.757375717163086,
+    ("knn_full", "phase 16", 12, False): 0.374208003282547,
+    ("knn_full", "random 4096", 1, False): 0.038176000118255615,
+    ("knn_full", "random 4096", 12, False): 0.09824000298976898,
+    ("knn_full", "random 4096", 33, False): 0.6915840208530426,
+    ("knn_full", "random 4096", 65, False): 1.2532800436019897,
+    ("knn_full", "random 4096", 200, False): 3.6685439348220825,
 }
 
 
@@ -1671,8 +1691,10 @@ def knn_kernel_checks(fk, nn, first_round, down):
     kernel at phase 14's first-round pair list (k = 12, plain and with the
     diagonal excluded), the compact wrapper with a budget one short of the
     survivors of 16 query tiles (the full-kernel fallback), the full kernel
-    at phase 16's shape and at a 4096 × 4096 random cloud with k = 1, 12
-    and 65, beside ``torch.cdist`` + ``topk`` as a two-call yardstick."""
+    at phase 16's shape and at a 4096 × 4096 random cloud with k = 1, 12,
+    33, 65 and 200 (the real rows, as ``knn_fused`` passes them, in the
+    design the route picks), beside ``torch.cdist`` + ``topk`` as a
+    two-call yardstick."""
     out = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -1758,13 +1780,15 @@ def knn_kernel_checks(fk, nn, first_round, down):
     emit(phase="knn_compact_fallback", query_rows=int(sub_qp.shape[0]), budget=n - 1, survivors=n,
          launches=routed, tolerance="bit-exact", max_abs_err=0.0)
 
-    # Full: phase 16's shape, then a random 4096-point cloud at three k.
+    # Full: phase 16's shape, then a random 4096-point cloud at five k.
     rng = np.random.default_rng(2)
     rand = torch.from_numpy(rng.uniform(-1, 1, (4096, 3)).astype(np.float32)).cuda()
     cases = [("phase 16", down.points, down.valid, KNN_K)]
-    cases += [("random 4096", rand, None, kk) for kk in (1, 12, 65)]
+    cases += [("random 4096", rand, None, kk) for kk in (1, 12, 33, 65, 200)]
     for label, pts, valid, kk in cases:
+        n = pts.shape[0]
         qp_f, kp_f = fk._augment(pts, pts, valid, 512, 2048)  # as knn_fused pads them
+        qp_f, kp_f = qp_f[:n], kp_f[:n]  # and passes the real rows
         p = pts if valid is None else pts[valid]
         entry = record(
             "knn_full", label, f"{label}: {qp_f.shape[0]}x{kp_f.shape[0]}",
@@ -2218,9 +2242,13 @@ def chunked_cdist_min(q, k):
 
 
 def _real_rows(qp, kp):
-    """Query rows that are points (the augmented "1" column) and key rows
-    that are live points (a "1" column and a finite norm), 3-D rows."""
-    return int((qp[:, 4] == 1).sum()), int(((kp[:, 3] == 1) & (kp[:, 4] < 1e37)).sum())
+    """The points behind augmented rows of D-dimensional points: the query
+    rows that are points (a 1 in column D + 1) and the key rows that are
+    live points (a 1 in column D and a finite norm in column D + 1), D from
+    the layout (the key rows' last nonzero column is the norm)."""
+    dim = int(torch.nonzero(kp.abs().sum(0)).max()) - 1
+    q = -0.5 * qp[qp[:, dim + 1] == 1, :dim]
+    return q, kp[(kp[:, dim] == 1) & (kp[:, dim + 1] < 1e37), :dim]
 
 
 def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel_vs_plain",
@@ -2245,13 +2273,14 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
             continue
         library = None
         extra = {}
+        dim = 3
         if name == "knn_full":
             qp, kp = args
             k, diag = kwargs["k"], kwargs.get("exclude_diag", False)
             kernel = lambda: fk.knn_full_rows(qp, kp, k=k, exclude_diag=diag)  # noqa: E731
             plain = lambda: fk.knn_full_rows_plain(qp, kp, k, diag)  # noqa: E731
-            nq, nk = _real_rows(qp, kp)
-            q, kk = -0.5 * qp[qp[:, 4] == 1, :3], kp[(kp[:, 3] == 1) & (kp[:, 4] < 1e37), :3]
+            q, kk = _real_rows(qp, kp)
+            nq, nk, dim = q.shape[0], kk.shape[0], q.shape[1]
             library = lambda: torch.topk(torch.cdist(q, kk), min(k, nk), dim=1, largest=False)  # noqa: E731
             pairs, nbytes = nq * nk, (qp.numel() + kp.numel()) * 4 + qp.shape[0] * k * 8
             extra = dict(k=k, exclude_diag=diag, query_rows=nq, key_rows=nk,
@@ -2276,9 +2305,9 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
             kernel = lambda: fn(*args, **kwargs)  # noqa: E731
             if name == "nn1_fused":
                 plain = lambda: plain_fn(qp, kp)  # noqa: E731
-                nq, nk = _real_rows(qp, kp)
-                pairs, nbytes = nq * nk, (qp.numel() + kp.numel()) * 4 + qp.shape[0] * 8
-                q, kk = -0.5 * qp[qp[:, 4] == 1, :3], kp[(kp[:, 3] == 1) & (kp[:, 4] < 1e37), :3]
+                q, kk = _real_rows(qp, kp)
+                dim = q.shape[1]
+                pairs, nbytes = q.shape[0] * kk.shape[0], (qp.numel() + kp.numel()) * 4 + qp.shape[0] * 8
                 library = lambda: chunked_cdist_min(q, kk)  # noqa: E731
                 extra = dict(library_is="torch.cdist + min over query chunks of at most 2^30 distances "
                                         "(a two-call yardstick; one cdist would not fit at 307,200²)")
@@ -2333,7 +2362,7 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
             by_ops = ROTATION_OPS * n / F32_OPS_PER_S * 1e3 if name == "project_to_rotation" else 0.0
             bound_ms, bound_by = max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
         else:
-            bound_ms, bound_by = nn1_bound(pairs, nbytes)
+            bound_ms, bound_by = nn1_bound(pairs, nbytes, dim)
         entry = dict(
             name=name, route="cuda", source=KERNEL_SOURCES[name], replaces=REPLACES[name],
             launches=launches[name], max_abs_err=max(max_abs_err(a, b) for a, b in zip(k_out, p_out)),
@@ -4534,6 +4563,77 @@ KERNEL_SOURCES = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Phase 40: the full kNN kernel's two designs.
+# ---------------------------------------------------------------------------
+
+# The last knn_full_rows call of phases 14-39 at each (query rows, key rows,
+# k, exclude_diag): its operands, phase 40's path cases.
+KNN_FULL_CALLS: dict = {}
+# Phase 40's cases from the paths: (label, query rows, k) of a call there.
+KNN_FULL_PATH_CASES = (
+    ("a: mean shift merge (mean_shift example, the modes of 4 x 300 points)", 1200, 33),
+    ("b: mean shift, capped path (mean_shift example, max_neighbors=512)", 1200, 513),
+    ("c: kd_tree example's radius search (cap 32), 2,000 x 120,000", 2000, 33),
+    ("d: spectral_and_components example's rings (2-D)", 600, 12),
+    ("e: dryrun ICP pair (phase 39a)", 16, 4),
+    # The pruned route's over-budget pass: its rows padded to its tiles.
+    ("h: spectral graph (phase 31, 3 x 10,000 points, via knn_pruned's full pass)", 30208, 12),
+    ("h: kd_tree example's kNN, 2,000 x 120,000", 2000, 5),
+    ("h: robust_normals example", 4000, 24),
+    ("h: batched_serving example", 512, 8),
+)
+
+
+def knn_full_recorded():
+    """A patch of ``fused_knn.knn_full_rows`` (``start()`` / ``stop()``)
+    that keeps each call's operands in :data:`KNN_FULL_CALLS`."""
+    from unittest import mock
+
+    from cilantro_tpu_torch.neighbors import fused_knn as fk
+
+    real = fk.knn_full_rows
+
+    def recording(qp, kp, *, k, exclude_diag=False):
+        KNN_FULL_CALLS[(qp.shape[0], kp.shape[0], k, bool(exclude_diag))] = (qp, kp)
+        return real(qp, kp, k=k, exclude_diag=exclude_diag)
+
+    return mock.patch.object(fk, "knn_full_rows", recording)
+
+
+def knn_full_designs(down, card):
+    """Phase 40: the full kNN kernel's two designs, a thread per query (PR
+    5's) and a warp per query, in one A/B
+    (``cilantro_tpu_torch/tools/knn_full_ab.py`` :func:`ab`: each held bit
+    for bit against the plain version, then timed visiting the designs
+    forward and backward, beside ``torch.cdist`` + ``topk``, the bound and
+    an empty launch) on the cases that decide the route: the paths' calls
+    (:data:`KNN_FULL_PATH_CASES`, phase 16's with ``down``) and phase 18's
+    random 4096² cloud at k = 1, 12, 33, 65 and 200. Returns ``{case:
+    {design: ms}}``."""
+    from cilantro_tpu_torch.tools import knn_full_ab as ab
+
+    t0 = time.perf_counter()
+    cases = {}
+    wanted = [*KNN_FULL_PATH_CASES, ("g: phase 16 (with_normals_knn(k=12), frame 0 grid-downsampled)",
+                                     int(down.capacity), KNN_K)]
+    for label, nq, k in wanted:
+        found = [key for key in KNN_FULL_CALLS if key[0] == nq and key[2] == k]
+        if not found:
+            raise AssertionError(f"phase 40: no knn_full call of {nq} query rows at k = {k} on the paths; "
+                                 f"recorded {sorted(KNN_FULL_CALLS)}")
+        qp, kp = KNN_FULL_CALLS[found[-1]]
+        cases[label] = (qp, kp, k, found[-1][3])
+    rand = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (4096, 3)).astype(np.float32)).cuda()
+    for k in (33, 65, 200):
+        cases[f"f: random 4096 (phase 18), k = {k}"] = ab.full_case(rand, rand, k, False)
+    for k in (1, 12):
+        cases[f"g: random 4096 (phase 18), k = {k}"] = ab.full_case(rand, rand, k, False)
+    result = ab.ab(ab.designs(), dict(sorted(cases.items())), card)
+    emit(phase="knn_full_designs_done", phase_s=time.perf_counter() - t0, cases=len(result))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only", file=sys.stderr)
@@ -4552,7 +4652,7 @@ def main() -> int:
 
     # 1. Build the kernels and the gather's design variants (phase 37), every
     # nvcc at once, and wait for all of them before anything is timed.
-    from cilantro_tpu_torch.tools import gather_variants
+    from cilantro_tpu_torch.tools import gather_variants, knn_full_ab
 
     t0 = time.perf_counter()
     gather_jobs = gather_variants.start_build(native)
@@ -4682,9 +4782,12 @@ def main() -> int:
         emit(phase="pool_driver_frames", error=f"{type(e).__name__}: {e}")
     pool_card_vs_cpu(cg, depths, k, pool_met.poses)
 
-    # 14-19. The neighbour engines and kNN normals with the two kNN kernels.
+    # 14-19. The neighbour engines and kNN normals with the two kNN kernels
+    # (every full-kernel call from here to phase 39 kept for phase 40).
     from cilantro_tpu_torch.neighbors import fused_knn
 
+    knn_full_calls = knn_full_recorded()
+    knn_full_calls.start()
     cloud0 = frame_cloud(depths[0], k, dev)
     _, ref_normals, ref_valid = pair[1]
     _, knn_launches, first_round = knn_normals_main_path(fused_knn, cloud0, ref_normals, ref_valid, card)
@@ -4786,6 +4889,18 @@ def main() -> int:
     print(json.dumps({"dryrun_paths": dry_paths, "held_bit_exact": dry_held}), flush=True)
     for name, by_path in dry_launches.items():
         sharded_launches.setdefault(name, {}).update(by_path)
+
+    # 40. The full kNN kernel's two designs in one A/B on the cases that
+    # decide its route.
+    knn_full_calls.stop()
+    designs_ab = knn_full_designs(down, card)
+    thread, warp = knn_full_ab.THREAD, knn_full_ab.WARP
+    print(json.dumps({"knn_full_designs": {label: {"warp_ms": t[warp], "thread_ms": t[thread],
+                                                   "warp_vs_thread": t[warp] / t[thread]}
+                                           for label, t in designs_ab.items()}}), flush=True)
+    knn["knn_full"]["previous_design_ms"] = designs_ab[
+        "g: phase 16 (with_normals_knn(k=12), frame 0 grid-downsampled)"][thread]
+    knn["knn_full"]["previous_design"] = "a thread per query (the earlier design), phase 40's A/B on phase 16's call"
 
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]

@@ -3,8 +3,14 @@
 // Each replaces one Pallas TPU kernel of cilantro_tpu/neighbors/pallas_nn.py
 // and computes what that kernel computes:
 //
-//   knn_full_kernel     <- _knn_kernel          (_knn_pallas_full, knn_pallas)
-//   knn_compact_kernel  <- _knn_kernel_compact  (_knn_pallas_compact)
+//   knn_full_kernel,
+//   knn_full_warp_kernel <- _knn_kernel          (_knn_pallas_full, knn_pallas)
+//   knn_compact_kernel   <- _knn_kernel_compact  (_knn_pallas_compact)
+//
+// The full search has two designs, one launcher each; the wrapper picks one
+// from the shapes (fused_knn._full_plan): a thread per query
+// (knn_full_kernel, items 1-3 below) and a warp per query
+// (knn_full_warp_kernel, item 5).
 //
 // Inputs are augmented rows of 8 float32 (q^ = [-2q, |q|^2, 1, 0...],
 // k^ = [k, 1, |k|^2, 0...], see fused_nn.py), so that the squared distance is
@@ -90,7 +96,33 @@
 // the tensor cores. These kernels issue the 8 products and 7 sums unfused
 // for bit-exactness, plus the filter and the queue, about 24 instructions a
 // pair, so at best about 40% of that bound; the merges come on top, and at
-// k > 32 they dominate (PERF.md §6 has the times).
+// k > 32 in the thread design they dominate (PERF.md §6 has the times). The
+// warp design reads a key from shared memory per lane (32 bytes a pair,
+// where the thread design's broadcast reads 1 byte), so on large grids its
+// shared-memory reads bound it before its arithmetic; its merges cost a
+// warp-wide network of shuffles each.
+//
+// 5. A warp per query (knn_full_warp_kernel), for k > 32 and for grids that
+//    one thread per query leaves short of blocks: a block of W warps takes W
+//    queries and stages 1,024 keys at a time in shared memory (the two
+//    float4 halves of a key in two arrays, so that the lanes' loads are
+//    conflict-free); lane l of a query's warp takes keys l, l + 32, ..., so
+//    a query's walk is 32 times shorter than with a thread per query. This
+//    is Johnson, Douze and Jegou's WarpSelect (arXiv:1702.08734, 4-5):
+//    - the query's sorted list lives in registers, P = 32 * 2^i >= k slots
+//      over the warp (P / 32 pairs a lane, slot e in register e / 32 of
+//      lane e % 32), so up to k = 1,024;
+//    - each lane filters its keys against the list's k-th into a queue of
+//      T pairs of its own, in registers; before every step the warp votes
+//      whether a queue could overflow, and then merges;
+//    - a merge sorts the 32 * T queued pairs with a warp-wide bitonic
+//      network (pad pairs (inf, INT_MAX) sort last), keeps the smaller of
+//      list[e] and queue[P - 1 - e] (the P smallest of both, a bitonic
+//      sequence) and sorts that with a bitonic merge; every compare is the
+//      exact pair compare, so the network's result is the pair order's.
+//    Key splits and the ticket merge of item 2 carry over: the last warp of
+//    a query offers its partial lists' pairs to a fresh list through the
+//    same queue. The queries need not fill the last block.
 //
 // Each launcher enqueues on the caller's stream, does not synchronise, and
 // returns the first CUDA error of its setup or launch, so that a refused
@@ -364,11 +396,13 @@ struct Query {
   Slots s;
   Queue qu;
 
+  // Rows past n_queries (the last block's padding) repeat the last query.
   __device__ __forceinline__ void init(const float* __restrict__ qp, int row0,
-                                       float2* queue, float* list_d,
-                                       int32_t* list_i, int list_row0, int k) {
+                                       int n_queries, float2* queue,
+                                       float* list_d, int32_t* list_i,
+                                       int list_row0, int k) {
     row = row0 + threadIdx.x;
-    load_query(qp, row, q);
+    load_query(qp, min(row, n_queries - 1), q);
     qu = Queue{queue + threadIdx.x, queue + threadIdx.x, (int)blockDim.x, 0};
     s.init(list_d, list_i, list_row0 + threadIdx.x, k);
   }
@@ -444,11 +478,12 @@ __device__ void fold_keys(const float* __restrict__ kp, int k0, int len,
   }
 }
 
-// grid (n_queries / 128, splits), one query a thread: block (x, y) folds
-// keys [y * split_len, min((y + 1) * split_len, n_keys)) for queries
-// [128 x, 128 x + 128). With one split it writes the output; with more,
-// partial lists to part (splits, n_queries, k), and the last block of each x
-// merges them into the output.
+// grid (ceil(n_queries / 128), splits), one query a thread: block (x, y)
+// folds keys [y * split_len, min((y + 1) * split_len, n_keys)) for queries
+// [128 x, 128 x + 128). The output and the partial lists have n_rows =
+// 128 * gridDim.x rows (the padding rows repeat the last query). With one
+// split it writes the output; with more, partial lists to part (splits,
+// n_rows, k), and the last block of each x merges them into the output.
 template <class Slots>
 __global__ void __launch_bounds__(kFullQueries)
 knn_full_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
@@ -459,6 +494,7 @@ knn_full_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
   __shared__ float2 queue[kQueue * kFullQueries];
   __shared__ int last;
   const int splits = gridDim.y;
+  const int n_rows = gridDim.x * kFullQueries;
   const int row0 = blockIdx.x * kFullQueries;
   float* list_d = out_d;
   int32_t* list_i = out_i;
@@ -466,10 +502,10 @@ knn_full_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
   if (splits > 1) {
     list_d = part_d;
     list_i = part_i;
-    list_row0 = blockIdx.y * n_queries + row0;
+    list_row0 = blockIdx.y * n_rows + row0;
   }
   Query<Slots> b;
-  b.init(qp, row0, queue, list_d, list_i, list_row0, k);
+  b.init(qp, row0, n_queries, queue, list_d, list_i, list_row0, k);
   const int k0 = blockIdx.y * split_len;
   fold_keys(kp, k0, min(split_len, n_keys - k0), row0, exclude_diag != 0, b,
             stage);
@@ -486,7 +522,7 @@ knn_full_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
   __threadfence();
   b.s.init(out_d, out_i, row0 + threadIdx.x, k);
   for (int y = 0; y < splits; ++y) {
-    for (int j = 0; j < k; ++j) b.offer_partial(part_d, part_i, y * n_queries + row0, j, k);
+    for (int j = 0; j < k; ++j) b.offer_partial(part_d, part_i, y * n_rows + row0, j, k);
   }
   b.merge_if(0);
   b.store(out_d, out_i, row0, k);
@@ -523,7 +559,7 @@ knn_compact_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
   int32_t* list_i = split ? part_i : out_i;
   const int list_row0 = split ? blockIdx.x * blockDim.x : row0;
   Query<Slots> b;
-  b.init(qp, row0, queue, list_d, list_i, list_row0, k);
+  b.init(qp, row0, n_queries, queue, list_d, list_i, list_row0, k);
   const int lo = starts[item.x];
   const int hi = starts[item.x + 1];
   const int center =
@@ -576,7 +612,7 @@ cudaError_t launch_full(const void* qp, const void* kp, int n_queries,
                         int split_len, void* part_d, void* part_i,
                         void* tickets, void* out_d, void* out_i,
                         cudaStream_t stream) {
-  const dim3 grid(n_queries / kFullQueries, splits);
+  const dim3 grid((n_queries + kFullQueries - 1) / kFullQueries, splits);
   knn_full_kernel<Slots><<<grid, kFullQueries, 0, stream>>>(
       static_cast<const float*>(qp), static_cast<const float*>(kp), n_queries,
       n_keys, k, exclude_diag, split_len, static_cast<float*>(part_d),
@@ -610,6 +646,303 @@ cudaError_t launch_compact(const void* qp, const void* kp, const void* kt_live,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Design 5: a warp per query (see the note at the top).
+// ---------------------------------------------------------------------------
+
+#ifndef KNN_WARP_KEYS
+#define KNN_WARP_KEYS 1  // keys a lane takes a step (distances in flight)
+#endif
+#ifndef KNN_WARP_QUEUE_MIN
+#define KNN_WARP_QUEUE_MIN 4  // queue pairs a lane: P / 32 clamped to these
+#endif
+#ifndef KNN_WARP_QUEUE_MAX
+#define KNN_WARP_QUEUE_MAX 8
+#endif
+constexpr int kWarpKeys = KNN_WARP_KEYS;
+constexpr int kWarpStage = 1024;  // keys staged in shared memory at a time
+constexpr int kMaxWarps = 8;      // warps (queries) a block at most
+constexpr int kNoPos = 0x7fffffff;
+static_assert(kWarpStage % (32 * kWarpKeys) == 0, "whole steps a stage");
+static_assert(KNN_WARP_QUEUE_MIN >= kWarpKeys, "a step fits an empty queue");
+
+// Afterwards (ad, ap) holds the smaller pair if up, else the larger.
+__device__ __forceinline__ void pair_cas(float& ad, int& ap, float& bd, int& bp,
+                                         bool up) {
+  const bool swap = up ? pair_less(bd, bp, ad, ap) : pair_less(ad, ap, bd, bp);
+  const float td = swap ? bd : ad;
+  const int tp = swap ? bp : ap;
+  bd = swap ? ad : bd;
+  bp = swap ? ap : bp;
+  ad = td;
+  ap = tp;
+}
+
+// One compare-exchange between lanes lane and lane ^ s (s < 32): the lane
+// keeps the smaller pair of the two if keep_min, else the larger.
+__device__ __forceinline__ void lane_cas(float& d, int& p, int s, bool keep_min) {
+  const float od = __shfl_xor_sync(kAll, d, s);
+  const int op = __shfl_xor_sync(kAll, p, s);
+  const bool take = keep_min ? pair_less(od, op, d, p) : pair_less(d, p, od, op);
+  d = take ? od : d;
+  p = take ? op : p;
+}
+
+// Sort the warp's 32 * N pairs ascending (pair e in register e / 32 of lane
+// e % 32): a bitonic sorting network.
+template <int N>
+__device__ __forceinline__ void warp_sort(float (&d)[N], int (&p)[N]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32 * N; size <<= 1) {
+#pragma unroll
+    for (int s = size >> 1; s > 0; s >>= 1) {
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        if (s >= 32) {
+          const int r2 = r ^ (s >> 5);
+          if (r2 > r) pair_cas(d[r], p[r], d[r2], p[r2], ((r * 32) & size) == 0);
+        } else {
+          const bool up = ((r * 32 + lane) & size) == 0;
+          lane_cas(d[r], p[r], s, ((lane & s) == 0) == up);
+        }
+      }
+    }
+  }
+}
+
+// The 32 * P smallest pairs of the sorted list (ld, lp) and the sorted queue
+// (qd, qp) of 32 * T pairs, sorted, into the list: list[e] against
+// queue[32 P - 1 - e] leaves a bitonic sequence, which a bitonic merge sorts.
+template <int P, int T>
+__device__ __forceinline__ void warp_merge(float (&ld)[P], int (&lp)[P],
+                                           const float (&qd)[T],
+                                           const int (&qp)[T]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    const int j = P - 1 - r;  // queue register of pair 32 P - 1 - e
+    if (j < T) {
+      const float od = __shfl_xor_sync(kAll, qd[j], 31);
+      const int op = __shfl_xor_sync(kAll, qp[j], 31);
+      const bool take = pair_less(od, op, ld[r], lp[r]);
+      ld[r] = take ? od : ld[r];
+      lp[r] = take ? op : lp[r];
+    }
+  }
+#pragma unroll
+  for (int s = 16 * P; s > 0; s >>= 1) {
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      if (s >= 32) {
+        const int r2 = r ^ (s >> 5);
+        if (r2 > r) pair_cas(ld[r], lp[r], ld[r2], lp[r2], true);
+      } else {
+        lane_cas(ld[r], lp[r], s, (lane & s) == 0);
+      }
+    }
+  }
+}
+
+// A warp's query: the row, its augmented coordinates, its list of 32 * P
+// slots (ascending; slots past k hold pairs above the k-th, or the starting
+// (3e38, 0)) and this lane's queue of T pairs. Every member function but
+// push is warp-collective.
+template <int P, int T>
+struct WarpQuery {
+  float q[kDim];
+  int row;
+  float ld[P];
+  int lp[P];
+  float qd[T];
+  int qi[T];
+  int cnt;
+  float bound;
+
+  __device__ __forceinline__ void init_list() {
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      ld[r] = kInvalid;
+      lp[r] = 0;
+    }
+    cnt = 0;
+    bound = filter_bound(kInvalid);
+  }
+
+  __device__ __forceinline__ void push(float d, int pos) {
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      qd[i] = i == cnt ? d : qd[i];
+      qi[i] = i == cnt ? pos : qi[i];
+    }
+    ++cnt;
+  }
+
+  __device__ __forceinline__ void merge(int k) {
+#pragma unroll
+    for (int i = 0; i < T; ++i) {
+      qd[i] = i < cnt ? qd[i] : CUDART_INF_F;
+      qi[i] = i < cnt ? qi[i] : kNoPos;
+    }
+    warp_sort<T>(qd, qi);
+    warp_merge<P, T>(ld, lp, qd, qi);
+    cnt = 0;
+    const int kr = (k - 1) >> 5;
+    float kth = ld[0];
+#pragma unroll
+    for (int r = 1; r < P; ++r) kth = r == kr ? ld[r] : kth;
+    bound = filter_bound(__shfl_sync(kAll, kth, (k - 1) & 31));
+  }
+
+  // Merge when some queue of the warp holds more than `above` pairs.
+  __device__ __forceinline__ void merge_if(int above, int k) {
+    if (__any_sync(kAll, cnt > above)) merge(k);
+  }
+
+  __device__ __forceinline__ void store(float* __restrict__ out_d,
+                                        int32_t* __restrict__ out_i,
+                                        size_t at, int k) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const int j = r * 32 + lane;
+      if (j < k) {
+        out_d[at + j] = ld[r];
+        out_i[at + j] = lp[r];
+      }
+    }
+  }
+};
+
+// Filter the staged keys [0, n_pad) (positions pos0 + m), lane l taking
+// keys l, l + 32, ..., kWarpKeys of them a step.
+template <bool kDiag, int P, int T>
+__device__ __forceinline__ void warp_scan(const float4* sa, const float4* sb,
+                                          int n_pad, int pos0, int k,
+                                          WarpQuery<P, T>& w) {
+  const int lane = threadIdx.x & 31;
+  for (int m = lane; m < n_pad; m += 32 * kWarpKeys) {
+    w.merge_if(T - kWarpKeys, k);
+    float d[kWarpKeys];
+#pragma unroll
+    for (int u = 0; u < kWarpKeys; ++u) {
+      d[u] = aug_dot(w.q, sa[m + 32 * u], sb[m + 32 * u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kWarpKeys; ++u) {
+      const int pos = pos0 + m + 32 * u;
+      if (d[u] <= w.bound && (!kDiag || pos != w.row)) w.push(d[u], pos);
+    }
+  }
+}
+
+// grid (ceil(n_queries / W), splits), W = blockDim.x / 32 warps a block, a
+// warp a query: block (x, y) folds keys [y * split_len, min((y + 1) *
+// split_len, n_keys)) for queries [W x, W x + W) (warps past n_queries only
+// stage keys). With one split it writes the output (n_queries, k); with
+// more, partial lists to part (splits, n_queries, k), and the last block of
+// each x merges them into the output.
+template <int P, int T>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+knn_full_warp_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
+                     int n_queries, int n_keys, int k, int exclude_diag,
+                     int split_len, float* part_d, int32_t* part_i,
+                     int32_t* tickets, float* out_d, int32_t* out_i) {
+  __shared__ float4 sa[kWarpStage];
+  __shared__ float4 sb[kWarpStage];
+  __shared__ int last;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const bool active = row < n_queries;
+  const int splits = gridDim.y;
+  WarpQuery<P, T> w;
+  w.row = row;
+  load_query(qp, active ? row : 0, w.q);
+  w.init_list();
+  const int k0 = blockIdx.y * split_len;
+  const int len = min(split_len, n_keys - k0);
+  const float4* src = reinterpret_cast<const float4*>(kp) + 2 * (size_t)k0;
+  const float4 nan4 = make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F,
+                                  CUDART_NAN_F);
+  for (int s0 = 0; s0 < len; s0 += kWarpStage) {
+    const int n = min(kWarpStage, len - s0);
+    const int n_pad = (n + 32 * kWarpKeys - 1) / (32 * kWarpKeys) * (32 * kWarpKeys);
+    __syncthreads();  // the previous stage has been read by every warp
+    for (int t = threadIdx.x; t < 2 * n_pad; t += blockDim.x) {
+      // NaN rows pad the stage to whole steps: a NaN sum never passes.
+      const float4 v = t < 2 * n ? src[2 * (size_t)s0 + t] : nan4;
+      if (t & 1) {
+        sb[t >> 1] = v;
+      } else {
+        sa[t >> 1] = v;
+      }
+    }
+    __syncthreads();
+    if (active) {
+      const int pos0 = k0 + s0;
+      if (exclude_diag && pos0 <= row && row < pos0 + n) {
+        warp_scan<true>(sa, sb, n_pad, pos0, k, w);
+      } else {
+        warp_scan<false>(sa, sb, n_pad, pos0, k, w);
+      }
+    }
+  }
+  if (active) {
+    w.merge_if(0, k);
+    if (splits == 1) {
+      w.store(out_d, out_i, (size_t)row * k, k);
+    } else {
+      w.store(part_d, part_i, ((size_t)blockIdx.y * n_queries + row) * k, k);
+    }
+  }
+  if (splits == 1) return;
+
+  // The last split block of these queries merges the partial lists.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&tickets[blockIdx.x], 1) == splits - 1;
+  __syncthreads();
+  if (!last || !active) return;
+  __threadfence();
+  w.init_list();
+  const int k_pad = (k + 32 * kWarpKeys - 1) / (32 * kWarpKeys) * (32 * kWarpKeys);
+  for (int y = 0; y < splits; ++y) {
+    const size_t at = ((size_t)y * n_queries + row) * k;
+    for (int j0 = lane; j0 < k_pad; j0 += 32 * kWarpKeys) {
+      w.merge_if(T - kWarpKeys, k);
+#pragma unroll
+      for (int u = 0; u < kWarpKeys; ++u) {
+        const int j = j0 + 32 * u;
+        if (j < k) {
+          const float d = __ldcg(part_d + at + j);
+          if (d <= w.bound) w.push(d, __ldcg(part_i + at + j));
+        }
+      }
+    }
+  }
+  w.merge_if(0, k);
+  w.store(out_d, out_i, (size_t)row * k, k);
+}
+
+template <int P>
+cudaError_t launch_full_warp(const void* qp, const void* kp, int n_queries,
+                             int n_keys, int k, int exclude_diag, int warps,
+                             int splits, int split_len, void* part_d,
+                             void* part_i, void* tickets, void* out_d,
+                             void* out_i, cudaStream_t stream) {
+  constexpr int T = P < KNN_WARP_QUEUE_MIN   ? KNN_WARP_QUEUE_MIN
+                    : P > KNN_WARP_QUEUE_MAX ? KNN_WARP_QUEUE_MAX
+                                             : P;
+  if (warps < 1 || warps > kMaxWarps) return cudaErrorInvalidValue;
+  const dim3 grid((n_queries + warps - 1) / warps, splits);
+  knn_full_warp_kernel<P, T><<<grid, 32 * warps, 0, stream>>>(
+      static_cast<const float*>(qp), static_cast<const float*>(kp), n_queries,
+      n_keys, k, exclude_diag, split_len, static_cast<float*>(part_d),
+      static_cast<int32_t*>(part_i), static_cast<int32_t*>(tickets),
+      static_cast<float*>(out_d), static_cast<int32_t*>(out_i));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The slot template the wrapper picked for k (fused_knn._slot_bucket): K > 0
@@ -636,9 +969,10 @@ cudaError_t launch_compact(const void* qp, const void* kp, const void* kt_live,
 
 extern "C" {
 
-// n_queries is a multiple of 128, k >= 1, n_queries * k < 2^31, and with
-// splits > 1 part_d / part_i hold (splits, n_queries, k) and tickets
-// n_queries / 128 zeros (the wrapper checks and allocates them).
+// n_queries >= 1, n_rows = n_queries rounded up to a multiple of 128, k >= 1,
+// n_rows * k < 2^31; out_d / out_i hold (n_rows, k), and with splits > 1
+// part_d / part_i hold (splits, n_rows, k) and tickets n_rows / 128 zeros
+// (the wrapper checks and allocates them).
 int knn_full_launch(const void* qp, const void* kp, int n_queries, int n_keys,
                     int k, int bucket, int exclude_diag, int splits,
                     int split_len, void* part_d, void* part_i, void* tickets,
@@ -646,6 +980,33 @@ int knn_full_launch(const void* qp, const void* kp, int n_queries, int n_keys,
   KNN_DISPATCH(launch_full, qp, kp, n_queries, n_keys, k, exclude_diag, splits,
                split_len, part_d, part_i, tickets, out_d, out_i,
                static_cast<cudaStream_t>(stream))
+}
+
+// The warp design: n_queries >= 1, 1 <= k <= 1024, n_queries * k < 2^31,
+// 1 <= warps <= 8 (queries a block); out_d / out_i hold (n_queries, k), and
+// with splits > 1 part_d / part_i hold (splits, n_queries, k) and tickets
+// ceil(n_queries / warps) zeros (the wrapper checks and allocates them). The
+// list has the least 32 * 2^i >= k slots.
+int knn_full_warp_launch(const void* qp, const void* kp, int n_queries,
+                         int n_keys, int k, int exclude_diag, int warps,
+                         int splits, int split_len, void* part_d, void* part_i,
+                         void* tickets, void* out_d, void* out_i, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define KNN_WARP_CASE(P)                                                      \
+  if (k <= 32 * (P)) {                                                        \
+    return static_cast<int>(launch_full_warp<P>(                              \
+        qp, kp, n_queries, n_keys, k, exclude_diag, warps, splits, split_len, \
+        part_d, part_i, tickets, out_d, out_i, st));                          \
+  }
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  KNN_WARP_CASE(1)
+  KNN_WARP_CASE(2)
+  KNN_WARP_CASE(4)
+  KNN_WARP_CASE(8)
+  KNN_WARP_CASE(16)
+  KNN_WARP_CASE(32)
+#undef KNN_WARP_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // tile_q is a multiple of rows (128 or 256, the queries of a block); kt_live

@@ -34,11 +34,11 @@ operations per visited pair of 3-D points at 67 TFLOP/s on an H100 SXM),
 with the top-k merges on top for the keys that enter. Every comparison in
 the kernels is between ``(sum, position)`` pairs, so the result does not
 depend on the order of the keys or on how their range is split: the full
-kernel splits it across blocks when the query blocks alone cannot fill the
-card (:func:`_full_splits`), the compact kernel takes work items balanced
-over the pair list (:func:`_compact_items`) and visits chunks nearest
-first, and both merge partial lists in the same launch. See the source for
-the design.
+kernel has two designs, a thread per query and a warp per query, and
+:func:`_full_plan` picks one and its key splits from the shapes; the
+compact kernel takes work items balanced over the pair list
+(:func:`_compact_items`) and visits chunks nearest first; both merge
+partial lists in the same launch. See the source for the designs.
 """
 
 from __future__ import annotations
@@ -76,8 +76,6 @@ launch_counts: Dict[str, int] = {
 }
 
 _BIG = 3e38
-# Radius-doubling rounds of ``knn_pruned`` before its full-kernel pass.
-_MAX_ROUNDS = 6
 
 
 def reset_launch_counts() -> None:
@@ -162,6 +160,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "knn_full_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "knn_full_warp_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "knn_compact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 
@@ -175,8 +174,10 @@ def _kernels() -> ctypes.CDLL:
     return lib
 
 
-def _launch(name: str, *args) -> None:
-    err = getattr(_kernels(), f"{name}_launch")(
+def _launch(name: str, *args, fn: Optional[str] = None, lib: Optional[ctypes.CDLL] = None) -> None:
+    """Launch kernel ``name`` through ``fn`` (default ``<name>_launch``) of
+    ``lib`` (default the built source)."""
+    err = getattr(lib or _kernels(), fn or f"{name}_launch")(
         *args, torch.cuda.current_stream().cuda_stream
     )
     if err != 0:
@@ -191,14 +192,14 @@ def _check_k(name, qp, k) -> None:
         raise ValueError(f"{name}: {qp.shape[0]} rows x k={k} reach 2^31 slots")
 
 
-# The kernels' shapes, as csrc/knn_kernels.cu names them: queries a block
-# (kFullQueries; the compact kernel's kMaxQueries), keys staged at a time
-# (kStage), distances in flight a thread (kChains) and candidate queue slots
-# a query (kQueue), one thread a query. The wrappers pick the rest and pass
-# it to the launch: a key split of at least 512 keys and 16·k while the grid
-# is short of _BLOCKS_PER_SM blocks an SM, the compact block (256 queries,
-# 128 when tile_q is an odd multiple of 128), parts of at most _PART_KEYS
-# keys, and the slot template (:func:`_slot_bucket`).
+# The kernels' shapes, as csrc/knn_kernels.cu names them. A thread a query:
+# queries a block (kFullQueries; the compact kernel's kMaxQueries), keys
+# staged at a time (kStage), distances in flight a thread (kChains) and
+# candidate queue slots a query (kQueue). The wrappers pick the rest and
+# pass it to the launch: a key split of at least 512 keys and 16·k while the
+# grid is short of _BLOCKS_PER_SM blocks an SM, the compact block (256
+# queries, 128 when tile_q is an odd multiple of 128), parts of at most
+# _PART_KEYS keys, and the slot template (:func:`_slot_bucket`).
 _FULL_BLOCK = 128
 _COMPACT_BLOCK = 256
 _STAGE = 512
@@ -207,6 +208,24 @@ _QUEUE = 16
 _BLOCKS_PER_SM = 4
 _PART_KEYS = 16384
 _REG_BUCKETS = (1, 4, 8, 12, 16, 24, 32)
+# A warp a query: keys staged at a time (kWarpStage), keys a lane takes a
+# step (kWarpKeys) and the largest k its register lists hold; the wrapper
+# picks the warps (queries) a block, _WARPS_LONG where a walk crosses at
+# least _WARP_LONG_KEYS keys (a stage is then shared by more queries) and
+# _WARPS below (more, smaller blocks for small grids), and key splits of at
+# least a stage and 16·k while the grid is short of _WARP_BLOCKS_PER_SM
+# blocks an SM.
+_WARP_STAGE = 1024
+_WARP_KEYS = 1
+_WARP_MAX_K = 1024
+_WARPS = 4
+_WARPS_LONG = 8
+_WARP_LONG_KEYS = 2 * _WARP_STAGE
+_WARP_BLOCKS_PER_SM = 2
+# The route: the thread design takes k <= 32 where its grid, key splits
+# included, holds at least this many blocks an SM (set by the A/B of the two
+# on the card: chip_smoke.py phase 40, tools/knn_full_ab.py; PERF.md §6).
+_THREAD_BLOCKS_PER_SM = 1
 
 
 def _slot_bucket(k: int) -> int:
@@ -229,19 +248,67 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _key_splits(n_keys: int, query_blocks: int, stage: int, least: int, blocks: int) -> Tuple[int, int]:
+    """``(splits, keys per split)``: enough key splits that ``query_blocks``
+    × splits reaches ``blocks``, each split a whole number of ``stage``-key
+    stages and at least ``least`` keys long."""
+    least = stage * max(1, _ceil_div(least, stage))
+    wanted = _ceil_div(blocks, max(query_blocks, 1))
+    splits = max(1, min(wanted, n_keys // least))
+    length = stage * _ceil_div(_ceil_div(n_keys, splits), stage)
+    return max(1, _ceil_div(n_keys, length)), length
+
+
 def _full_splits(n_queries: int, n_keys: int, k: int, sms: int) -> Tuple[int, int]:
-    """``(splits, keys per split)`` of the full kernel: enough key splits
+    """``(splits, keys per split)`` of the thread design: enough key splits
     that the grid holds about ``_BLOCKS_PER_SM`` blocks per SM, each split a
     whole number of stages and long enough (512 keys and 16·k) that its
     partial list costs less than its keys."""
-    def ceil_div(a, b):
-        return -(-a // b)
+    return _key_splits(n_keys, _ceil_div(n_queries, _FULL_BLOCK), _STAGE, 16 * k, _BLOCKS_PER_SM * sms)
 
-    least = _STAGE * max(1, ceil_div(16 * k, _STAGE))
-    wanted = ceil_div(_BLOCKS_PER_SM * sms, max(n_queries // _FULL_BLOCK, 1))
-    splits = max(1, min(wanted, n_keys // least))
-    length = _STAGE * ceil_div(ceil_div(n_keys, splits), _STAGE)
-    return max(1, ceil_div(n_keys, length)), length
+
+def _full_plan(n_queries: int, n_keys: int, k: int, sms: int, design: Optional[str] = None) -> dict:
+    """The full kernel's design and grid at these shapes, a function of
+    ``(n_queries, n_keys, k, sms)`` alone: ``{"design": "thread" | "warp",
+    "queries_per_block", "splits", "keys_per_split", "blocks"}``.
+
+    The route: a thread a query (the earlier design, slots in registers) for
+    k ≤ 32 while its grid, key splits included (:func:`_full_splits`),
+    holds at least ``_THREAD_BLOCKS_PER_SM`` blocks an SM, and past k =
+    ``_WARP_MAX_K`` (list rows in device memory); a warp a query otherwise,
+    ``_WARPS_LONG`` warps a block from ``_WARP_LONG_KEYS`` keys on
+    (``_WARPS`` below), with key splits toward ``_WARP_BLOCKS_PER_SM``
+    blocks an SM. So small clouds and every 32 < k ≤ 1,024 take the warp
+    design. ``design`` forces one, for the A/B of the two on the card
+    (``chip_smoke.py`` phase 40); no entry point passes it."""
+    t_splits, t_len = _full_splits(n_queries, n_keys, k, sms)
+    t_blocks = _ceil_div(n_queries, _FULL_BLOCK) * t_splits
+    if design is None:
+        fills = k <= 32 and t_blocks >= _THREAD_BLOCKS_PER_SM * sms
+        design = "thread" if fills or k > _WARP_MAX_K else "warp"
+    if design == "thread":
+        return dict(design="thread", queries_per_block=_FULL_BLOCK, splits=t_splits, keys_per_split=t_len,
+                    blocks=t_blocks)
+    if design != "warp" or k > _WARP_MAX_K:
+        raise ValueError(f"knn_full: no design {design!r} for k={k}")
+    warps = _WARPS_LONG if n_keys >= _WARP_LONG_KEYS else _WARPS
+    query_blocks = _ceil_div(n_queries, warps)
+    splits, length = _key_splits(n_keys, query_blocks, _WARP_STAGE, 16 * k, _WARP_BLOCKS_PER_SM * sms)
+    return dict(design="warp", queries_per_block=warps, splits=splits, keys_per_split=length,
+                blocks=query_blocks * splits)
+
+
+def _warp_lists(k: int) -> Tuple[int, int]:
+    """The warp design's list slots (the least 32·2^i ≥ k) and queue pairs
+    a lane (slots / 32 clamped to 4..8)."""
+    slots = 32
+    while slots < k:
+        slots *= 2
+    return slots, min(max(slots // 32, 4), 8)
 
 
 def kernel_design(
@@ -249,6 +316,12 @@ def kernel_design(
 ) -> dict:
     """The kernels' launch parameters at these shapes, from the values the
     wrappers compute (for reports)."""
+    if name == "knn_full":
+        plan = _full_plan(n_queries, n_keys, k, sms)
+        if plan["design"] == "warp":
+            slots, queue = _warp_lists(k)
+            return dict(plan, queries_per_warp=1, slots=f"registers, {slots} a warp ({slots // 32} a lane)",
+                        queue_pairs_per_lane=queue, keys_per_lane_step=_WARP_KEYS, stage_keys=_WARP_STAGE)
     bucket = _slot_bucket(k)
     design = {
         "slots": f"registers, bucket K={bucket}" if bucket > 0
@@ -256,9 +329,7 @@ def kernel_design(
         "queries_per_thread": 1, "distances_in_flight": _CHAINS, "queue_slots": _QUEUE,
     }
     if name == "knn_full":
-        splits, length = _full_splits(n_queries, n_keys, k, sms)
-        return dict(design, queries_per_block=_FULL_BLOCK, splits=splits, keys_per_split=length,
-                    blocks=n_queries // _FULL_BLOCK * splits)
+        return dict(design, **plan)
     return dict(design, queries_per_block=_compact_rows(tile_q),
                 chunks_per_part=max(1, _PART_KEYS // max(tile_m, 1)),
                 order="work items by live chunks, most first; chunks nearest first")
@@ -275,26 +346,52 @@ def knn_full_rows(
     qp: torch.Tensor, kp: torch.Tensor, *, k: int, exclude_diag: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k nearest keys of every augmented query row over all key rows:
-    ``(dist (Qp, k) f32, idx (Qp, k) i32)``, raw (not clamped or gated)."""
+    ``(dist (Qp, k) f32, idx (Qp, k) i32)``, raw (not clamped or gated).
+    Any number of rows on either side; the design and grid are
+    :func:`_full_plan`'s."""
     name = "knn_full"
     _check_rows(name, qp, kp, 1, 1)
     _check_k(name, qp, k)
     if native.on_cpu(name, qp, kp):
         return knn_full_rows_plain(qp, kp, k, exclude_diag)
-    _check_cuda(name, qp.shape[0], ("qp", qp), ("kp", kp))
-    dist, idx = _outputs(qp, k)
-    splits, length = _full_splits(qp.shape[0], kp.shape[0], k, _sm_count(qp.device))
+    if qp.shape[0] == 0 or kp.shape[0] == 0:
+        raise ValueError(f"{name}: {qp.shape[0]} query rows and {kp.shape[0]} key rows, wants at least 1")
+    # Any number of query rows: a block of either design is one tile.
+    _check_cuda(name, _FULL_BLOCK, ("qp", qp), ("kp", kp))
+    plan = _full_plan(qp.shape[0], kp.shape[0], k, _sm_count(qp.device))
+    return _full_launch(qp, kp, k, exclude_diag, plan)
+
+
+def _full_launch(qp, kp, k: int, exclude_diag: bool, plan: dict, lib: Optional[ctypes.CDLL] = None):
+    """The full kernel's launch in ``plan``'s design and grid (outputs and
+    scratch allocated here): the thread design writes whole blocks of 128
+    rows, so its outputs are views of the first ``Qp`` rows. ``lib``: a
+    library built from a variant of the source (``tools/knn_full_ab.py``)."""
+    n, splits, length = qp.shape[0], plan["splits"], plan["keys_per_split"]
+    rows = n if plan["design"] == "warp" else _ceil_div(n, _FULL_BLOCK) * _FULL_BLOCK
+    if rows * k >= 2**31:
+        raise ValueError(f"knn_full: {rows} rows x k={k} reach 2^31 slots")
+    dist = torch.empty((rows, k), dtype=torch.float32, device=qp.device)
+    idx = torch.empty((rows, k), dtype=torch.int32, device=qp.device)
     # Partial lists of the key splits and one ticket per query block.
-    part = (splits if splits > 1 else 0, qp.shape[0], k)
+    part = (splits if splits > 1 else 0, rows, k)
     part_d = torch.empty(part, dtype=torch.float32, device=qp.device)
     part_i = torch.empty(part, dtype=torch.int32, device=qp.device)
-    tickets = torch.zeros(qp.shape[0] // _FULL_BLOCK, dtype=torch.int32, device=qp.device)
-    _launch(
-        name, qp.data_ptr(), kp.data_ptr(), qp.shape[0], kp.shape[0], k, _slot_bucket(k),
-        int(exclude_diag), splits, length, part_d.data_ptr(), part_i.data_ptr(),
-        tickets.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-    )
-    return dist, idx
+    tickets = torch.zeros(_ceil_div(n, plan["queries_per_block"]), dtype=torch.int32, device=qp.device)
+    if plan["design"] == "warp":
+        _launch(
+            "knn_full", qp.data_ptr(), kp.data_ptr(), n, kp.shape[0], k, int(exclude_diag),
+            plan["queries_per_block"], splits,
+            length, part_d.data_ptr(), part_i.data_ptr(), tickets.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+            fn="knn_full_warp_launch", lib=lib,
+        )
+    else:
+        _launch(
+            "knn_full", qp.data_ptr(), kp.data_ptr(), n, kp.shape[0], k, _slot_bucket(k), int(exclude_diag),
+            splits, length, part_d.data_ptr(), part_i.data_ptr(), tickets.data_ptr(), dist.data_ptr(),
+            idx.data_ptr(), lib=lib,
+        )
+    return dist[:n], idx[:n]
 
 
 def knn_compact_rows(
@@ -460,14 +557,14 @@ def knn_fused(
     """Exact kNN through the full kernel (port of ``knn_pallas``):
     ``(dist² (Q, k), idx (Q, k) int32)``, ascending. ``exclude_self`` drops
     the diagonal (queries and keys positionally one cloud). The tiles only
-    pad the operands, as JAX's do."""
+    pad the operands, as JAX's do; the kernel sees the real rows alone
+    (padding keys never enter, padding queries are dropped)."""
     qn, mn = queries.shape[0], keys.shape[0]
     k_eff = min(k, mn)
     qp, kp = _augment(queries, keys, key_valid, tile_q, tile_m)
-    dist, idx = knn_full_rows(qp, kp, k=k_eff, exclude_diag=exclude_self)
-    dist = torch.clamp(dist[:qn], min=0.0)
+    dist, idx = knn_full_rows(qp[:qn], kp[:mn], k=k_eff, exclude_diag=exclude_self)
+    dist = torch.clamp(dist, min=0.0)
     dist = torch.where(dist >= INVALID_DIST * 0.5, INVALID_DIST, dist)
-    idx = idx[:qn]
     if query_valid is not None:
         dist = torch.where(query_valid[:, None], dist, INVALID_DIST)
     return _pad_slots(dist, idx, k)
@@ -480,21 +577,25 @@ def knn_pruned(
     *,
     query_valid: Optional[torch.Tensor] = None,
     key_valid: Optional[torch.Tensor] = None,
+    init_radius: Optional[float] = None,
     tile_q: int = 256,
     tile_m: int = 1024,
     exclude_self: bool = False,
+    max_rounds: int = 6,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN by Morton-tile pruning with radius doubling (port of
     ``knn_pruned``): each round runs the compact kernel over the tile pairs
     within the current radius of the unresolved query tiles and resolves a
     query when its k-th distance is within the radius, or when its tile's
     pairs covered every occupied key chunk (fewer than k valid keys); the
-    radius doubles for the rest. The JAX ``while_loop`` is a host loop with
-    one read-back per round (the survivor list, whose emptiness says that
-    every query is resolved), at most ``_MAX_ROUNDS`` rounds, then a full
-    pass for whatever is still unresolved. With ``exclude_self`` both sides
-    share one Morton permutation (by ``query_valid | key_valid``), so the
-    sorted diagonal stays the self pairs."""
+    radius doubles for the rest. The first radius is ``init_radius``, or
+    by default a surface-density guess from the keys' extent; it also sizes
+    the Morton cells. The JAX ``while_loop`` is a host loop with one
+    read-back per round (the survivor list, whose emptiness says that every
+    query is resolved), at most ``max_rounds`` rounds, then a full pass for
+    whatever is still unresolved. With ``exclude_self`` both sides share one
+    Morton permutation (by ``query_valid | key_valid``), so the sorted
+    diagonal stays the self pairs."""
     qn, mn = queries.shape[0], keys.shape[0]
     if exclude_self and qn != mn:
         raise ValueError(
@@ -508,10 +609,13 @@ def knn_pruned(
 
     kext_min = torch.where(kv[:, None], keys, _BIG).amin(dim=0)
     kext_max = torch.where(kv[:, None], keys, -_BIG).amax(dim=0)
-    diag = torch.sqrt(_sq_norm((kext_max - kext_min)[None, :]))[0, 0]
-    # Surface-density guess: spacing ~ diag·sqrt(1/M) on a 2-manifold.
-    frac = torch.tensor(float(max(k_eff, 1)), device=dev) / torch.tensor(float(mn), device=dev)
-    r0 = torch.clamp(diag * torch.sqrt(frac), min=1e-6)
+    if init_radius is None:
+        diag = torch.sqrt(_sq_norm((kext_max - kext_min)[None, :]))[0, 0]
+        # Surface-density guess: spacing ~ diag·sqrt(1/M) on a 2-manifold.
+        frac = torch.tensor(float(max(k_eff, 1)), device=dev) / torch.tensor(float(mn), device=dev)
+        r0 = torch.clamp(diag * torch.sqrt(frac), min=1e-6)
+    else:
+        r0 = torch.tensor(init_radius, dtype=torch.float32, device=dev)
 
     origin = torch.minimum(torch.where(qv[:, None], queries, _BIG).amin(dim=0), kext_min)
     if exclude_self:
@@ -538,7 +642,7 @@ def knn_pruned(
     resolved = torch.ones(qn_pad, dtype=torch.bool, device=dev)
     resolved[:qn] = ~qvs  # invalid and padding rows are resolved
     radius = r0
-    for _ in range(_MAX_ROUNDS):
+    for _ in range(max_rounds):
         r2 = radius * radius
         tile_unres = (~resolved).reshape(n_qt, tile_q).any(dim=1) & q_occ
         mask = (aabb_d2 <= r2) & tile_unres[:, None] & k_occ[None, :]
@@ -566,7 +670,7 @@ def knn_pruned(
         radius = radius * 2.0
     else:
         if not bool(resolved.all()):
-            # Safety net after _MAX_ROUNDS under-guesses: one full pass.
+            # Safety net after max_rounds under-guesses: one full pass.
             d_f, i_f = knn_full_rows(qp, kp, k=k_eff, exclude_diag=exclude_self)
             dist = torch.where(resolved[:, None], dist, d_f)
             idx = torch.where(resolved[:, None], idx, i_f)

@@ -91,10 +91,9 @@ NO_COUNTERPART = {
 RENAMED = {"nn1_pallas": "fused_rows", "knn_pallas": "knn_full_rows"}
 # Parameters removed by design: ``interpret`` (Pallas only); the
 # ``coalesced`` switches and FusionConfig.coalesced_gathers (the gather
-# kernel always runs on the card); knn_pruned's round knobs (no caller
-# sets them).
+# kernel always runs on the card). No function drops a parameter of its own.
 DROPPED_PARAMS = {"interpret", "coalesced", "coalesced_gathers"}
-DROPPED_BY_NAME = {"knn_pruned": {"init_radius", "max_rounds"}}
+DROPPED_BY_NAME = {}
 # JAX's PRNG key is a torch.Generator in the port.
 RENAMED_PARAMS = {"key": "generator"}
 

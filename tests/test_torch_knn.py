@@ -410,12 +410,31 @@ def test_knn_pruned_safety_net_matches_jax(monkeypatch):
     q, keys, k, kw = _pruned_case("volume")
     full_calls = []
     full = tk.knn_full_rows
-    monkeypatch.setattr(tk, "_MAX_ROUNDS", 1)
     monkeypatch.setattr(tk, "knn_full_rows", lambda *a, **kw: full_calls.append(1) or full(*a, **kw))
     dj, ij = jnn.knn_pruned(jnp.asarray(q), jnp.asarray(keys), k, tile_q=128, tile_m=256,
                             max_rounds=1, interpret=True, key_valid=jnp.asarray(kw["key_valid"]))
-    dt, it = tk.knn_pruned(_t(q), _t(keys), k, tile_q=128, tile_m=256, key_valid=_t(kw["key_valid"]))
+    dt, it = tk.knn_pruned(_t(q), _t(keys), k, tile_q=128, tile_m=256, max_rounds=1,
+                           key_valid=_t(kw["key_valid"]))
     assert full_calls == [1]  # the budget holds every pair: only the safety net ran it
+    _assert_knn_close(q, keys, dt, it, dj, ij)
+
+
+@pytest.mark.parametrize("init_radius,full_pass", [(0.05, True), (1.0, False)])
+def test_knn_pruned_init_radius_matches_jax(monkeypatch, init_radius, full_pass):
+    """``init_radius`` replaces the density guess (and sizes the Morton
+    cells) as in JAX: on the volume cloud with one round, 0.05 under-guesses
+    (the safety net's full pass finishes the search) and 1.0 resolves every
+    query in the round. The radius is traced in JAX, so both cases share
+    one compiled program."""
+    q, keys, k, kw = _pruned_case("volume")
+    full_calls = []
+    full = tk.knn_full_rows
+    monkeypatch.setattr(tk, "knn_full_rows", lambda *a, **kw: full_calls.append(1) or full(*a, **kw))
+    dj, ij = jnn.knn_pruned(jnp.asarray(q), jnp.asarray(keys), k, init_radius=init_radius, tile_q=128,
+                            tile_m=256, max_rounds=1, interpret=True, key_valid=jnp.asarray(kw["key_valid"]))
+    dt, it = tk.knn_pruned(_t(q), _t(keys), k, init_radius=init_radius, tile_q=128, tile_m=256, max_rounds=1,
+                           key_valid=_t(kw["key_valid"]))
+    assert full_calls == ([1] if full_pass else [])
     _assert_knn_close(q, keys, dt, it, dj, ij)
 
 

@@ -73,30 +73,78 @@ def _operands(dev, seed=0, qn=1000, mn=3000, same_cloud=False, invalid_queries=F
 
 
 # Each side of the kernels' register buckets (32 | 33: registers | device
-# memory rows) and of the full kernel's key splits.
-KS = [1, 12, 32, 33, 65, 200]
+# memory rows in the thread design, one | two registers a lane in the warp
+# design, whose lists end at 1,024 slots: 513 takes all of them) and of the
+# full kernel's key splits.
+KS = [1, 12, 32, 33, 65, 200, 513]
+# The full kernel's designs: None is the route's pick, the others forced
+# through the internal launcher.
+DESIGNS = [None, "thread", "warp"]
+
+
+def _full(qp, kp, k, diag, design):
+    """One launch of the full kernel in ``design`` (None: the route's)."""
+    if design is None:
+        return knn.knn_full_rows(qp, kp, k=k, exclude_diag=diag)
+    plan = knn._full_plan(qp.shape[0], kp.shape[0], k, knn._sm_count(qp.device), design=design)
+    return knn._full_launch(qp, kp, k, diag, plan)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", DESIGNS)
 @pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("diag", [False, True])
-def test_full_kernel_matches_plain(cuda, k, diag):
+def test_full_kernel_matches_plain(cuda, k, diag, design):
+    """1,001 query rows: not a multiple of the warp design's 4 queries a
+    block nor of the thread design's 128 (the last row is padding, whose
+    sums are all 0: a row of ties)."""
     qp, kp, _ = _operands(cuda, seed=k, same_cloud=diag)
-    out = _launched("knn_full", lambda: knn.knn_full_rows(qp, kp, k=k, exclude_diag=diag))
+    qp = qp[:1001]
+    out = _launched("knn_full", lambda: _full(qp, kp, k, diag, design))
     _same(out, knn.knn_full_rows_plain(qp, kp, k, diag))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", ["thread", "warp"])
 @pytest.mark.parametrize("k", [1, 12, 33, 200])
 @pytest.mark.parametrize("diag", [False, True])
-def test_full_kernel_split_path_matches_plain(cuda, k, diag):
-    """128 queries against 8,192 keys: one query block, so the kernel
-    splits the keys across blocks and merges the partial lists. Keys 0-99
-    are queries 0-99, so the diagonal drops their distance-0 pairs."""
+def test_full_kernel_split_path_matches_plain(cuda, k, diag, design):
+    """128 queries against 8,192 keys: too few query blocks, so either
+    design splits the keys across blocks and merges the partial lists.
+    Keys 0-99 are queries 0-99, so the diagonal drops their distance-0
+    pairs."""
     qp, kp, _ = _operands(cuda, seed=20 + k, qn=128, mn=8192)
-    assert knn._full_splits(qp.shape[0], kp.shape[0], k, knn._sm_count(qp.device))[0] > 1
-    out = _launched("knn_full", lambda: knn.knn_full_rows(qp, kp, k=k, exclude_diag=diag))
+    assert knn._full_plan(qp.shape[0], kp.shape[0], k, knn._sm_count(qp.device), design=design)["splits"] > 1
+    out = _launched("knn_full", lambda: _full(qp, kp, k, diag, design))
     _same(out, knn.knn_full_rows_plain(qp, kp, k, diag))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "case", ["k 32 | 33", "k 1024 | 1025", "thread grid at | under its least", "warp walk under | at long"])
+def test_full_route_each_side_of_its_thresholds(cuda, case):
+    """The route's pick on each side of each threshold it uses (the
+    design, and the warp design's warps a block), launched as routed and
+    bit for bit against the plain version."""
+    sms = knn._sm_count(cuda)
+    if case == "k 32 | 33":
+        sides = [(4096, 4096, 32, "thread"), (4096, 4096, 33, "warp")]
+    elif case == "k 1024 | 1025":
+        sides = [(1200, 1500, 1024, "warp"), (1200, 1500, 1025, "thread")]
+    elif case == "thread grid at | under its least":
+        at = knn._FULL_BLOCK * knn._THREAD_BLOCKS_PER_SM * sms
+        sides = [(at, 1000, 12, "thread"), (at - knn._FULL_BLOCK, 1000, 12, "warp")]
+    else:
+        sides = [(601, knn._WARP_LONG_KEYS - 1, 40, "warp"), (601, knn._WARP_LONG_KEYS, 40, "warp")]
+    for qn, mn, k, design in sides:
+        qp, kp, _ = _operands(cuda, seed=qn + k, qn=qn, mn=mn)
+        qp, kp = qp[:qn], kp[:mn]
+        plan = knn.kernel_design("knn_full", qn, mn, k, sms=sms)
+        assert plan["design"] == design
+        if design == "warp":
+            assert plan["queries_per_block"] == (knn._WARPS_LONG if mn >= knn._WARP_LONG_KEYS else knn._WARPS)
+        out = _launched("knn_full", lambda: knn.knn_full_rows(qp, kp, k=k))  # noqa: B023
+        _same(out, knn.knn_full_rows_plain(qp, kp, k))
 
 
 @pytest.mark.cuda
@@ -125,10 +173,11 @@ def test_compact_long_runs_split_into_parts_match_plain(cuda, k, diag):
 @pytest.mark.parametrize("diag", [False, True])
 def test_tie_heavy_grid_matches_plain(cuda, k, diag):
     """Integer-grid points: equal distances everywhere, straddling the full
-    kernel's key splits and the compact kernel's chunks."""
+    kernel's key splits (both designs) and the compact kernel's chunks."""
     qn = 4000 if diag else 256
     qp, kp, mask = _operands(cuda, seed=30 + k, qn=qn, mn=6000, same_cloud=diag, grid=True)
-    _same(knn.knn_full_rows(qp, kp, k=k, exclude_diag=diag), knn.knn_full_rows_plain(qp, kp, k, diag))
+    for design in DESIGNS:
+        _same(_full(qp, kp, k, diag, design), knn.knn_full_rows_plain(qp, kp, k, diag))
     qt, kt, fl = nn._compact_list(mask, mask.numel())
     _same(
         knn.knn_compact_rows(qp, kp, qt, kt, fl, k=k, tile_q=TQ, tile_m=TM, exclude_diag=diag),
@@ -195,7 +244,9 @@ def test_compact_wrapper_reads_nothing_back(cuda, k):
 @pytest.mark.cuda
 def test_invalid_queries_match_plain(cuda):
     qp, kp, mask = _operands(cuda, seed=4, invalid_queries=True)
-    _same(knn.knn_full_rows(qp, kp, k=12), knn.knn_full_rows_plain(qp, kp, 12))
+    for design in DESIGNS:
+        for k in (12, 65):
+            _same(_full(qp, kp, k, False, design), knn.knn_full_rows_plain(qp, kp, k))
     qt, kt, fl = nn._compact_list(mask, mask.numel())
     _same(
         knn.knn_compact_rows(qp, kp, qt, kt, fl, k=12, tile_q=TQ, tile_m=TM),
