@@ -39,6 +39,7 @@ from .fusion import (
     init_map_from_frame,
     pack_camera_target,
 )
+from ..utils.profiling import annotate_function, count, span
 from .scan import RUNS, scan
 
 
@@ -217,6 +218,7 @@ class BatchedFusionMetrics:
     num_map_points: np.ndarray  # (B,)
 
 
+@annotate_function("cilantro.entry.batched_fusion")
 def run_batched_fusion_sequences(
     depth_stacks,  # (B, F, H, W) array-like, metric depth
     intrinsics: CameraIntrinsics,
@@ -236,23 +238,31 @@ def run_batched_fusion_sequences(
     compile). Returns the final ``(B, C, 16)`` pools and per-stream
     metrics. ``stats``, if given, receives ``device_seconds_per_step``
     (CUDA events, ``None`` on the CPU), ``launches_per_step`` (every kernel
-    counter) and ``icp_iterations`` (``(B, F)``, 0 for the seed frame)."""
+    counter) and ``icp_iterations`` (``(B, F)``, 0 for the seed frame).
+    The call is a ``cilantro.entry.batched_fusion`` span, with
+    ``entry.prepare`` and ``entry.finish`` spans and the
+    ``gn_iterations_kept`` / ``gn_iterations_run`` counters inside
+    (:mod:`..utils.profiling`)."""
     dev = resolve_device(device)
-    stacks = np.asarray(depth_stacks, np.float32)
-    bsz, nf, h, w = stacks.shape
-    if map_capacity is None:
-        map_capacity = 4 * h * w
-    pts, nrm, valid = depth_to_points_normals(torch.as_tensor(stacks[:, 0], device=dev), intrinsics)
-    data0 = stack_maps([init_map_from_frame(map_capacity, pts[b], nrm[b], None, valid[b])
-                        for b in range(bsz)])
-    pose0 = identity(3, batch_shape=(bsz,), device=dev)
+    with span("cilantro.entry.prepare"):
+        stacks = np.asarray(depth_stacks, np.float32)
+        bsz, nf, h, w = stacks.shape
+        if map_capacity is None:
+            map_capacity = 4 * h * w
+        pts, nrm, valid = depth_to_points_normals(torch.as_tensor(stacks[:, 0], device=dev),
+                                                  intrinsics)
+        data0 = stack_maps([init_map_from_frame(map_capacity, pts[b], nrm[b], None, valid[b])
+                            for b in range(bsz)])
+        pose0 = identity(3, batch_shape=(bsz,), device=dev)
+        if nf > 1:
+            _, packed0 = batched_seed_localize_target(data0, pose0, intrinsics, h, w)
+            rest = torch.as_tensor(np.ascontiguousarray(stacks[:, 1:].transpose(1, 0, 2, 3)),
+                                   device=dev)
     if nf == 1:  # nothing to track: the seeded pools are the result
         mats = np.zeros((0, bsz, 4, 4), np.float32)
         iterations = np.zeros((0, bsz), np.int32)
         data, per_step, dev_per_step, launches = data0, 0.0, None, {}
     else:
-        _, packed0 = batched_seed_localize_target(data0, pose0, intrinsics, h, w)
-        rest = torch.as_tensor(np.ascontiguousarray(stacks[:, 1:].transpose(1, 0, 2, 3)), device=dev)
 
         def step(carry, depth_b):
             data, linear, translation, packed = carry
@@ -271,14 +281,18 @@ def run_batched_fusion_sequences(
         mats, iterations = out.ys  # (F-1, B, 4, 4), (F-1, B)
         per_step, dev_per_step = out.seconds_per_step, out.device_seconds_per_step
         launches = dict(out.launches_per_step)
-    eye = np.broadcast_to(np.eye(4, dtype=np.float32), (bsz, 1, 4, 4))
-    poses = np.concatenate([eye, mats.transpose(1, 0, 2, 3)], axis=1)
-    n_pts = torch.sum(data[..., _valid_col(data.shape[-1])] > 0.5, dim=1).cpu().numpy()
-    if stats is not None:
-        stats.update(
-            device_seconds_per_step=dev_per_step, launches_per_step=launches,
-            icp_iterations=np.concatenate([np.zeros((bsz, 1), np.int32), iterations.T], axis=1),
-        )
+    with span("cilantro.entry.finish"):
+        count("gn_iterations_kept", iterations.sum())
+        count("gn_iterations_run", cfg.icp_iterations * iterations.size)
+        eye = np.broadcast_to(np.eye(4, dtype=np.float32), (bsz, 1, 4, 4))
+        poses = np.concatenate([eye, mats.transpose(1, 0, 2, 3)], axis=1)
+        n_pts = torch.sum(data[..., _valid_col(data.shape[-1])] > 0.5, dim=1).cpu().numpy()
+        if stats is not None:
+            stats.update(
+                device_seconds_per_step=dev_per_step, launches_per_step=launches,
+                icp_iterations=np.concatenate([np.zeros((bsz, 1), np.int32), iterations.T],
+                                              axis=1),
+            )
     return data, BatchedFusionMetrics(
         poses=poses,
         streams=bsz,

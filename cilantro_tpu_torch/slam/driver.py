@@ -31,6 +31,7 @@ from .fusion import (
     init_map_from_frame,
     seed_localize_target,
 )
+from ..utils.profiling import annotate_function, count, span
 from .scan import RUNS, scan
 
 
@@ -184,31 +185,36 @@ def run_fusion_sequence_scanned(
                            RUNS)
 
 
+@annotate_function("cilantro.entry.fusion_scanned")
 def _fusion_scanned(depths, intrinsics, map_capacity, cfg, dev, stats, runs):
     """:func:`run_fusion_sequence_scanned` with the passes over the
     sequence chosen (:func:`.scan.scan`'s ``runs``): ``run_slam`` takes its
-    odometry from one pass after the capture."""
+    odometry from one pass after the capture. The call is a
+    ``cilantro.entry.fusion_scanned`` span, with ``entry.prepare`` and
+    ``entry.finish`` spans and the ``gn_iterations_kept`` /
+    ``gn_iterations_run`` counters inside (:mod:`..utils.profiling`)."""
     h, w = depths[0].shape
     if map_capacity is None:
         map_capacity = 4 * h * w
-    pts, nrm, valid = depth_to_points_normals(
-        torch.as_tensor(np.asarray(depths[0], np.float32), device=dev), intrinsics
-    )
-    fmap0 = init_map_from_frame(map_capacity, pts, nrm, None, valid)
-    if len(depths) == 1:  # nothing to track: the seeded map is the result
-        if stats is not None:
-            stats.update(device_seconds_per_frame=None, launches_per_frame={})
-        return fmap0, FusionMetrics(
-            poses=[np.eye(4, dtype=np.float32)],
-            frames=1,
-            seconds_per_frame=0.0,
-            icp_iterations=[0],
-            num_map_points=int(fmap0.num_points()),
+    with span("cilantro.entry.prepare"):
+        pts, nrm, valid = depth_to_points_normals(
+            torch.as_tensor(np.asarray(depths[0], np.float32), device=dev), intrinsics
         )
-    depth_stack = torch.as_tensor(np.stack([np.asarray(d, np.float32) for d in depths[1:]]),
-                                  device=dev)
-    pose0 = identity(3, device=dev)
-    _, packed0 = seed_localize_target(fmap0, pose0, intrinsics, h, w)
+        fmap0 = init_map_from_frame(map_capacity, pts, nrm, None, valid)
+        if len(depths) == 1:  # nothing to track: the seeded map is the result
+            if stats is not None:
+                stats.update(device_seconds_per_frame=None, launches_per_frame={})
+            return fmap0, FusionMetrics(
+                poses=[np.eye(4, dtype=np.float32)],
+                frames=1,
+                seconds_per_frame=0.0,
+                icp_iterations=[0],
+                num_map_points=int(fmap0.num_points()),
+            )
+        depth_stack = torch.as_tensor(np.stack([np.asarray(d, np.float32) for d in depths[1:]]),
+                                      device=dev)
+        pose0 = identity(3, device=dev)
+        _, packed0 = seed_localize_target(fmap0, pose0, intrinsics, h, w)
 
     def step(carry, depth):
         data, linear, translation, packed = carry
@@ -223,18 +229,21 @@ def _fusion_scanned(depths, intrinsics, map_capacity, cfg, dev, stats, runs):
         step, (fmap0.data, pose0.linear, pose0.translation, packed0), depth_stack,
         counters=(coalesced_launch_counts, transforms_launch_counts), runs=runs,
     )
-    fmap = FusionMap(data=out.carry[0])
-    mats, iterations = out.ys
-    if stats is not None:
-        stats.update(device_seconds_per_frame=out.device_seconds_per_step,
-                     launches_per_frame=dict(out.launches_per_step))
-    return fmap, FusionMetrics(
-        poses=[np.eye(4, dtype=np.float32)] + list(mats),
-        frames=len(depths),
-        seconds_per_frame=out.seconds_per_step,
-        icp_iterations=[0] + [int(i) for i in iterations],
-        num_map_points=int(fmap.num_points()),
-    )
+    with span("cilantro.entry.finish"):
+        fmap = FusionMap(data=out.carry[0])
+        mats, iterations = out.ys
+        count("gn_iterations_kept", iterations.sum())
+        count("gn_iterations_run", cfg.icp_iterations * len(iterations))
+        if stats is not None:
+            stats.update(device_seconds_per_frame=out.device_seconds_per_step,
+                         launches_per_frame=dict(out.launches_per_step))
+        return fmap, FusionMetrics(
+            poses=[np.eye(4, dtype=np.float32)] + list(mats),
+            frames=len(depths),
+            seconds_per_frame=out.seconds_per_step,
+            icp_iterations=[0] + [int(i) for i in iterations],
+            num_map_points=int(fmap.num_points()),
+        )
 
 
 def ate_rmse(

@@ -16,6 +16,13 @@ eager steps. On the CPU the same step runs eagerly.
 A kernel wrapper counts its launches in Python, which runs once, at
 capture: a replay launches what the capture recorded, so the launches of a
 run are ``steps × launches_per_step``.
+
+Each phase is a ``cilantro.scan.*`` span (:mod:`..utils.profiling`): the
+warm-up step and the capture, each pass over the sequence
+(``pass.untimed``, ``pass.timed``), each step in it (the ``x`` copy, the
+replay or the eager step, the ``ys`` copies) and the read-back of ``ys``
+that ends a timed pass. No span lies inside the step, which runs only at
+warm-up and capture.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 RUNS = 3
 Tensors = Tuple[torch.Tensor, ...]
@@ -60,19 +69,20 @@ class _GraphStep:
     sequence."""
 
     def __init__(self, step: Step, carry0: Tensors, x0: torch.Tensor, counters):
-        self.carry = tuple(c.clone() for c in carry0)
-        self.x = x0.clone()
-        self.graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream(device=x0.device)
-        stream.wait_stream(torch.cuda.current_stream())
-        # Warm-up on the capture's stream: libraries load, cuBLAS and
-        # cuSOLVER set up their handles and workspaces, kernels set their
-        # attributes. Its output is dropped; the carry is left as it was.
-        with torch.cuda.stream(stream):
-            step(self.carry, self.x)
-        torch.cuda.current_stream().wait_stream(stream)
+        with span("cilantro.scan.warmup"):
+            self.carry = tuple(c.clone() for c in carry0)
+            self.x = x0.clone()
+            self.graph = torch.cuda.CUDAGraph()
+            stream = torch.cuda.Stream(device=x0.device)
+            stream.wait_stream(torch.cuda.current_stream())
+            # Warm-up on the capture's stream: libraries load, cuBLAS and
+            # cuSOLVER set up their handles and workspaces, kernels set their
+            # attributes. Its output is dropped; the carry is left as it was.
+            with torch.cuda.stream(stream):
+                step(self.carry, self.x)
+            torch.cuda.current_stream().wait_stream(stream)
         before = _counts(counters)
-        with torch.cuda.graph(self.graph, stream=stream):
+        with span("cilantro.scan.capture"), torch.cuda.graph(self.graph, stream=stream):
             new_carry, self.ys = step(self.carry, self.x)
             for dst, src in zip(self.carry, new_carry):
                 dst.copy_(src)
@@ -84,10 +94,11 @@ class _GraphStep:
         out = tuple(torch.empty((xs.shape[0],) + y.shape, dtype=y.dtype, device=y.device)
                     for y in self.ys)
         for i in range(xs.shape[0]):
-            self.x.copy_(xs[i])
-            self.graph.replay()
-            for o, y in zip(out, self.ys):
-                o[i].copy_(y)
+            with span("cilantro.scan.step"):
+                self.x.copy_(xs[i])
+                self.graph.replay()
+                for o, y in zip(out, self.ys):
+                    o[i].copy_(y)
         return out
 
 
@@ -113,7 +124,8 @@ def scan(
         graph = _GraphStep(step, carry0, xs[0], counters)
         launches = graph.launches
         if runs > 1:
-            graph.run(carry0, xs)
+            with span("cilantro.scan.pass.untimed"):
+                graph.run(carry0, xs)
 
         def one_run():
             return graph.carry, graph.run(carry0, xs)
@@ -124,26 +136,30 @@ def scan(
         def one_run():
             carry, ys = carry0, []
             for i in range(xs.shape[0]):
-                carry, y = step(carry, xs[i])
+                with span("cilantro.scan.step"):
+                    carry, y = step(carry, xs[i])
                 ys.append(y)
             return carry, tuple(torch.stack(col) for col in zip(*ys))
 
     best = best_dev = float("inf")
     for _ in range(runs):
-        before = _counts(counters)
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-        t0 = time.perf_counter()
-        carry, ys = one_run()
-        if dev.type == "cuda":
-            end.record()
-        ys_host = tuple(y.cpu().numpy() for y in ys)
-        if launches is None:
-            launches = {k: v // xs.shape[0] for k, v in _delta(before, counters).items()}
-        best = min(best, time.perf_counter() - t0)
-        if dev.type == "cuda":
-            best_dev = min(best_dev, start.elapsed_time(end) * 1e-3)
+        with span("cilantro.scan.pass.timed"):
+            before = _counts(counters)
+            if dev.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            carry, ys = one_run()
+            if dev.type == "cuda":
+                end.record()
+            with span("cilantro.scan.readback"):
+                ys_host = tuple(y.cpu().numpy() for y in ys)
+            if launches is None:
+                launches = {k: v // xs.shape[0] for k, v in _delta(before, counters).items()}
+            best = min(best, time.perf_counter() - t0)
+            if dev.type == "cuda":
+                best_dev = min(best_dev, start.elapsed_time(end) * 1e-3)
     n = xs.shape[0]
     return Scanned(
         carry=tuple(c.clone() for c in carry),

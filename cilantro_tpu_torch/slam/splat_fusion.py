@@ -42,6 +42,7 @@ from ..core.transforms import (
     reproject_rigid,
 )
 from ..core.transforms import launch_counts as transforms_launch_counts
+from ..utils.profiling import annotate_function, count, span
 from .scan import scan
 from .splat import (
     flow_select_rows,
@@ -468,6 +469,7 @@ def run_splat_sequence(
     return smap, poses, sec_per_frame, launches
 
 
+@annotate_function("cilantro.entry.splat_scanned")
 def run_splat_sequence_scanned(
     depths: Sequence[np.ndarray],
     intrinsics: CameraIntrinsics,
@@ -488,19 +490,23 @@ def run_splat_sequence_scanned(
     the poses) and, for each fused frame, the kernel launches it made.
     ``stats``, if given, receives ``device_seconds_per_frame`` (CUDA
     events, ``None`` on the CPU), ``iterations`` (GN iterations kept, a
-    frame) and ``launches_per_frame`` (every kernel counter)."""
+    frame) and ``launches_per_frame`` (every kernel counter). The call is
+    a ``cilantro.entry.splat_scanned`` span, with ``entry.prepare`` and
+    ``entry.finish`` spans and the ``gn_iterations_kept`` /
+    ``gn_iterations_run`` counters inside (:mod:`..utils.profiling`)."""
     dev = resolve_device(device)
     h, w = depths[0].shape
-    fpt, fnm, fval = _frame_images(
-        torch.as_tensor(np.asarray(depths[0], np.float32), device=dev), intrinsics, h, w
-    )
-    smap0 = init_splat_map(fpt, fnm, fval, cfg)
-    if len(depths) == 1:  # nothing to track: the seeded map is the result
-        if stats is not None:
-            stats.update(device_seconds_per_frame=None, iterations=[], launches_per_frame={})
-        return smap0, [np.eye(4, dtype=np.float32)], 0.0, []
-    depth_stack = torch.as_tensor(np.stack([np.asarray(d, np.float32) for d in depths[1:]]),
-                                  device=dev)
+    with span("cilantro.entry.prepare"):
+        fpt, fnm, fval = _frame_images(
+            torch.as_tensor(np.asarray(depths[0], np.float32), device=dev), intrinsics, h, w
+        )
+        smap0 = init_splat_map(fpt, fnm, fval, cfg)
+        if len(depths) == 1:  # nothing to track: the seeded map is the result
+            if stats is not None:
+                stats.update(device_seconds_per_frame=None, iterations=[], launches_per_frame={})
+            return smap0, [np.eye(4, dtype=np.float32)], 0.0, []
+        depth_stack = torch.as_tensor(np.stack([np.asarray(d, np.float32) for d in depths[1:]]),
+                                      device=dev)
 
     def step(carry, depth):
         rows, linear, translation = carry
@@ -515,15 +521,18 @@ def run_splat_sequence_scanned(
         step, (smap0.rows, pose0.linear, pose0.translation), depth_stack,
         counters=(launch_counts, transforms_launch_counts),
     )
-    rows, linear, translation = out.carry
-    mats, iterations = out.ys
-    if stats is not None:
-        stats.update(
-            device_seconds_per_frame=out.device_seconds_per_step,
-            iterations=[int(i) for i in iterations],
-            launches_per_frame=dict(out.launches_per_step),
-        )
-    per_frame = {k: out.launches_per_step[k] for k in launch_counts}
-    poses = [np.eye(4, dtype=np.float32)] + list(mats)
-    smap = SplatMap(rows=rows, pose=Transform(linear, translation))
+    with span("cilantro.entry.finish"):
+        rows, linear, translation = out.carry
+        mats, iterations = out.ys
+        count("gn_iterations_kept", iterations.sum())
+        count("gn_iterations_run", cfg.icp_iterations * len(iterations))
+        if stats is not None:
+            stats.update(
+                device_seconds_per_frame=out.device_seconds_per_step,
+                iterations=[int(i) for i in iterations],
+                launches_per_frame=dict(out.launches_per_step),
+            )
+        per_frame = {k: out.launches_per_step[k] for k in launch_counts}
+        poses = [np.eye(4, dtype=np.float32)] + list(mats)
+        smap = SplatMap(rows=rows, pose=Transform(linear, translation))
     return smap, poses, out.seconds_per_step, [dict(per_frame) for _ in mats]

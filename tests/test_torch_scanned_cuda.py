@@ -125,3 +125,66 @@ def test_scanned_pool_replays_the_graph_form(cuda, stride):
                                            "project_to_rotation": cfg.icp_iterations}
     assert fmap.data.device.type == "cuda" and m.num_map_points == int(fmap.num_points())
     assert td.ate_rmse(m.poses, gt) < 0.01
+
+
+def _card_calls(k, depths):
+    """Each whole-clip entry on a small clip: its name and a call that
+    returns its poses and map."""
+    from cilantro_tpu_torch.slam.batched_fusion import run_batched_fusion_sequences
+
+    h, w = depths[0].shape
+    stack = np.stack(depths)
+
+    def splat():
+        smap, poses, _, _ = tsf.run_splat_sequence_scanned(
+            depths, k, cfg=tsf.SplatConfig(radius=2, margin=16))
+        return np.stack(poses), smap.rows
+
+    def fusion():
+        fmap, m = td.run_fusion_sequence_scanned(depths, k, map_capacity=4 * h * w)
+        return np.stack(m.poses), fmap.data
+
+    def batched():
+        data, m = run_batched_fusion_sequences(np.stack([stack, stack[::-1]]), k,
+                                               map_capacity=4 * h * w)
+        return m.poses, data
+
+    return {"cilantro.entry.splat_scanned": splat, "cilantro.entry.fusion_scanned": fusion,
+            "cilantro.entry.batched_fusion": batched}
+
+
+@pytest.mark.cuda
+def test_entry_spans_stay_on_the_host(cuda):
+    """With the CUDA activity on: each entry call holds one warm-up and one
+    capture span; no device-side event carries a ``cilantro.`` name or is
+    a user annotation; results are bit for bit those of an untraced call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k = CameraIntrinsics.make(140.0, 140.0, 79.5, 63.5)
+    depths, _ = td.synthetic_sequence(4, 128, 160, k, seed=0)
+    calls = _card_calls(k, depths)
+    plain = {name: call() for name, call in calls.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = {name: [call(), call()] for name, call in calls.items()}
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert device, "the profiler recorded no device event"
+    assert not [e.name() for e in device if e.name().startswith("cilantro.")]
+    assert not [e.name() for e in device if e.is_user_annotation()]
+    host = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+            if e.device_type() != torch.autograd.DeviceType.CUDA
+            and e.name().startswith("cilantro.")]
+    for name in calls:
+        roots = [e for e in host if e[0] == name]
+        assert len(roots) == 2, name
+        for r in roots:
+            inside = [e[0] for e in host if r[1] <= e[1] and e[2] <= r[2]]
+            assert inside.count("cilantro.scan.warmup") == 1, name
+            assert inside.count("cilantro.scan.capture") == 1, name
+            assert inside.count("cilantro.scan.pass.untimed") == 1, name
+            assert inside.count("cilantro.scan.pass.timed") == 3, name
+            assert inside.count("cilantro.scan.step") == 4 * 3, name
+        for poses, data in traced[name]:
+            np.testing.assert_array_equal(poses, plain[name][0])
+            assert torch.equal(data, plain[name][1]), name
