@@ -2110,11 +2110,16 @@ KERNEL_WRAPPERS = (
 
 
 def reset_all_counts():
+    """Zero the launch counters and drop the whole-clip entries' kept
+    graphs: a kept graph's replays pass through no wrapper, so a count
+    from 0 starts with every entry capturing."""
     from cilantro_tpu_torch.core import coalesced, transforms
     from cilantro_tpu_torch.neighbors import fused_knn, fused_nn
+    from cilantro_tpu_torch.slam import scan
 
     for mod in (coalesced, transforms, fused_knn, fused_nn):
         mod.reset_launch_counts()
+    scan.clear()
 
 
 def all_counts() -> dict:

@@ -242,7 +242,15 @@ def run_batched_fusion_sequences(
     The call is a ``cilantro.entry.batched_fusion`` span, with
     ``entry.prepare`` and ``entry.finish`` spans and the
     ``gn_iterations_kept`` / ``gn_iterations_run`` counters inside
-    (:mod:`..utils.profiling`)."""
+    (:mod:`..utils.profiling`).
+
+    On the card a later call with the same ``cfg``, ``intrinsics``, B,
+    frame shape, ``map_capacity`` and device replays the step the first
+    captured, with no warm-up and no capture (:func:`.scan.scan`'s
+    ``key``); ``seconds_per_step`` keeps its meaning. Between calls the
+    entry keeps that one graph, its pool and its static buffers (the B
+    pools, poses and packed targets, a step's frames and outputs); a call
+    with another key replaces them, :func:`.scan.clear` frees them."""
     dev = resolve_device(device)
     with span("cilantro.entry.prepare"):
         stacks = np.asarray(depth_stacks, np.float32)
@@ -276,6 +284,7 @@ def run_batched_fusion_sequences(
         out = scan(
             step, (data0, pose0.linear, pose0.translation, packed0), rest,
             counters=(coalesced_launch_counts, transforms_launch_counts), runs=RUNS,
+            key=("batched_fusion", cfg, intrinsics, h, w),
         )
         data = out.carry[0]
         mats, iterations = out.ys  # (F-1, B, 4, 4), (F-1, B)

@@ -180,7 +180,16 @@ def run_fusion_sequence_scanned(
     first run excluded, as the JAX driver excludes its compile; each run
     ended by the read-back of the poses). ``stats``, if given, receives
     ``device_seconds_per_frame`` (CUDA events, ``None`` on the CPU) and
-    ``launches_per_frame`` (every kernel counter)."""
+    ``launches_per_frame`` (every kernel counter).
+
+    On the card a later call with the same ``cfg``, ``intrinsics``, frame
+    shape, ``map_capacity`` and device, this entry's or ``run_slam``'s
+    scanned front end's, replays the step the first captured, with no
+    warm-up and no capture (:func:`.scan.scan`'s ``key``);
+    ``seconds_per_frame`` keeps its meaning. Between calls the entry keeps
+    that one graph, its pool and its static buffers (the pool, a pose, the
+    packed target, a frame, a step's outputs); a call with another key
+    replaces them, :func:`.scan.clear` frees them."""
     return _fusion_scanned(depths, intrinsics, map_capacity, cfg, resolve_device(device), stats,
                            RUNS)
 
@@ -189,7 +198,8 @@ def run_fusion_sequence_scanned(
 def _fusion_scanned(depths, intrinsics, map_capacity, cfg, dev, stats, runs):
     """:func:`run_fusion_sequence_scanned` with the passes over the
     sequence chosen (:func:`.scan.scan`'s ``runs``): ``run_slam`` takes its
-    odometry from one pass after the capture. The call is a
+    odometry from one pass (after the capture, where no earlier call
+    left the step kept). The call is a
     ``cilantro.entry.fusion_scanned`` span, with ``entry.prepare`` and
     ``entry.finish`` spans and the ``gn_iterations_kept`` /
     ``gn_iterations_run`` counters inside (:mod:`..utils.profiling`)."""
@@ -228,6 +238,7 @@ def _fusion_scanned(depths, intrinsics, map_capacity, cfg, dev, stats, runs):
     out = scan(
         step, (fmap0.data, pose0.linear, pose0.translation, packed0), depth_stack,
         counters=(coalesced_launch_counts, transforms_launch_counts), runs=runs,
+        key=("fusion_scanned", cfg, intrinsics, h, w),
     )
     with span("cilantro.entry.finish"):
         fmap = FusionMap(data=out.carry[0])

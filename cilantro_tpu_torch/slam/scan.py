@@ -13,28 +13,42 @@ replay and the read-back of ``ys`` at the end of a run the host never waits
 on the device; a capture that fails raises, and nothing falls back to
 eager steps. On the CPU the same step runs eagerly.
 
+A call with a ``key`` keeps its captured step for the next call of its
+call site: one slot a site (the key's first item), which holds one graph,
+its private memory pool and its static buffers (the carry, one ``x``, one
+step's ``ys``). A later call whose key, carry shapes and dtypes, ``x``
+shape and dtype and device are all equal replays the kept graph with no
+warm-up and no capture; any other call of the site drops the kept graph
+first, so that its pool can go, and captures anew. :func:`clear` drops
+every slot. A keyless call, and every call on the CPU, keeps nothing. The
+key must name every value the step reads that is neither in the carry nor
+in ``x``: a captured graph holds the addresses of the tensors it read and
+the Python values the step branched on at capture.
+
 A kernel wrapper counts its launches in Python, which runs once, at
 capture: a replay launches what the capture recorded, so the launches of a
-run are ``steps × launches_per_step``.
+run are ``steps × launches_per_step``. A kept graph's replays add nothing
+to the wrappers' counters; its ``launches_per_step`` is its capture's.
 
 Each phase is a ``cilantro.scan.*`` span (:mod:`..utils.profiling`): the
 warm-up step and the capture, each pass over the sequence
 (``pass.untimed``, ``pass.timed``), each step in it (the ``x`` copy, the
 replay or the eager step, the ``ys`` copies) and the read-back of ``ys``
 that ends a timed pass. No span lies inside the step, which runs only at
-warm-up and capture.
+warm-up and capture. A keyed call on the card counts ``scan_graph_reused``
+or ``scan_graph_captured``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 RUNS = 3
 Tensors = Tuple[torch.Tensor, ...]
@@ -102,6 +116,37 @@ class _GraphStep:
         return out
 
 
+# Call site -> (full key, kept step); see the module docstring.
+_kept: Dict[str, Tuple[tuple, _GraphStep]] = {}
+
+
+def clear() -> None:
+    """Drop every kept graph (:func:`scan`'s ``key``), and with it its pool
+    and static buffers once nothing else holds them."""
+    _kept.clear()
+
+
+def _graph_step(step: Step, carry0: Tensors, x0: torch.Tensor, counters,
+                key: Optional[Tuple[Hashable, ...]]) -> _GraphStep:
+    """The captured step for this call: a new one without ``key``, else
+    the site's kept one where the full key matches, else a new one that
+    takes the site's slot."""
+    if key is None:
+        return _GraphStep(step, carry0, x0, counters)
+    site = key[0]
+    full = (key, tuple((c.shape, c.dtype) for c in carry0), x0.shape, x0.dtype, x0.device)
+    kept = _kept.pop(site, None)
+    if kept is not None and kept[0] == full:
+        graph = kept[1]
+        count("scan_graph_reused", 1)
+    else:
+        del kept  # the old graph's pool is free before the new capture
+        graph = _GraphStep(step, carry0, x0, counters)
+        count("scan_graph_captured", 1)
+    _kept[site] = (full, graph)
+    return graph
+
+
 def scan(
     step: Step,
     carry0: Tensors,
@@ -109,19 +154,37 @@ def scan(
     *,
     counters: Sequence[Dict[str, int]] = (),
     runs: int = RUNS,
+    key: Optional[Tuple[Hashable, ...]] = None,
 ) -> Scanned:
     """Run ``step`` over ``xs`` (at least one step) from ``carry0``
     ``runs`` times and keep the fastest by the host clock, as the JAX
     drivers do, each run ended by the read-back of its stacked ``ys``. On
-    the card the capture comes first and, when ``runs > 1``, one untimed
-    run of the sequence (the JAX driver's compile and first run);
-    ``runs=1`` is one pass of the sequence after the capture. ``counters`` are the
+    the card the capture (unless kept) comes first and, when ``runs > 1``,
+    one untimed run of the sequence (the JAX driver's compile and first
+    run); ``runs=1`` is one pass of the sequence. ``counters`` are the
     launch-count dicts of the kernels the step may launch. The step
     returns new tensors: none of its outputs may be a view of another
-    position's carry buffer, which the copy-back would overwrite."""
+    position's carry buffer, which the copy-back would overwrite.
+
+    ``key``: ``(site, *values)``, where ``site`` names the caller's slot
+    and ``values`` are every value the step reads besides the carry and
+    ``x`` (the module docstring). With a key, a later call on the card
+    with equal key, shapes, dtypes and device replays the step this call
+    captured; the seconds never include the capture either way. The
+    returned carry is a copy: the next call overwrites the static
+    buffers, so calls of one site may not overlap (two threads).
+
+    The keyed callers' steps (``splat_scanned``, ``fusion_scanned``,
+    ``batched_fusion``) read no tensor from outside the carry, ``x`` and
+    what they allocate inside the capture, which the graph's pool keeps:
+    no module of the port caches a grid or constant tensor between calls.
+    Their closures hold Python values alone (the configuration, the
+    intrinsics, the frame's height and width), and their keys name all of
+    them. cuBLAS's workspace for the capture's stream stays in PyTorch's
+    per-stream map for the life of the process."""
     dev = xs.device
     if dev.type == "cuda":
-        graph = _GraphStep(step, carry0, xs[0], counters)
+        graph = _graph_step(step, carry0, xs[0], counters, key)
         launches = graph.launches
         if runs > 1:
             with span("cilantro.scan.pass.untimed"):

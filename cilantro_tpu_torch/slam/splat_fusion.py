@@ -493,7 +493,15 @@ def run_splat_sequence_scanned(
     frame) and ``launches_per_frame`` (every kernel counter). The call is
     a ``cilantro.entry.splat_scanned`` span, with ``entry.prepare`` and
     ``entry.finish`` spans and the ``gn_iterations_kept`` /
-    ``gn_iterations_run`` counters inside (:mod:`..utils.profiling`)."""
+    ``gn_iterations_run`` counters inside (:mod:`..utils.profiling`).
+
+    On the card a later call with the same ``cfg``, ``intrinsics``, frame
+    shape and device replays the step the first captured, with no warm-up
+    and no capture (:func:`.scan.scan`'s ``key``); the returned seconds keep
+    their meaning. Between calls the entry keeps that one graph, its pool
+    and its static buffers (the map, a pose, a frame, a step's outputs);
+    a call with another key replaces them, :func:`.scan.clear` frees
+    them."""
     dev = resolve_device(device)
     h, w = depths[0].shape
     with span("cilantro.entry.prepare"):
@@ -520,6 +528,7 @@ def run_splat_sequence_scanned(
     out = scan(
         step, (smap0.rows, pose0.linear, pose0.translation), depth_stack,
         counters=(launch_counts, transforms_launch_counts),
+        key=("splat_scanned", cfg, intrinsics),
     )
     with span("cilantro.entry.finish"):
         rows, linear, translation = out.carry

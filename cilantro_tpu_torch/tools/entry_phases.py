@@ -15,14 +15,16 @@ then ``N`` calls more, each alone in a ``torch.profiler`` window with the
 CUDA activity on (``portbench.trace.traced``). Of each traced call it
 keeps the host milliseconds of every ``cilantro.`` span, summed by name
 (``other``: the entry span less its ``entry.*`` and ``scan.*`` children,
-and the device's busy milliseconds inside each) and the GN counters. It
+and the device's busy milliseconds inside each), the GN counters and the
+kept-graph counters (``scan_graph_reused`` / ``scan_graph_captured``). It
 also times 200,000 enters and exits of ``utils.profiling.span`` with no
 profiler running. A checkout without the spans reports call times only.
 
 One JSON line a root and cell (the per-call lists), then one summary line
 a root and cell: the median call, untraced and traced, each span's median
 and its median in the slow calls (1.2× the traced median or more), with
-the span that grew most there. Lines go to standard output and, with
+the span that grew most there, and the share of traced calls that
+replayed a kept graph (``None`` for a checkout that keeps none). Lines go to standard output and, with
 ``--out FILE``, to ``FILE``.
 """
 
@@ -137,13 +139,18 @@ def summary(root: str, r: dict) -> dict:
                       slow_host_ms=median_of(slow, k)) for k in names}
     grew = max((k for k in names if k != "entry" and slow),
                key=lambda k: phases[k]["slow_host_ms"] - phases[k]["host_ms"], default=None)
-    kept = sum(row["counts"].get("gn_iterations_kept", 0) for row in r["traced"])
-    ran = sum(row["counts"].get("gn_iterations_run", 0) for row in r["traced"])
+    def total(counter):
+        return sum(row["counts"].get(counter, 0) for row in r["traced"])
+
+    kept, ran = total("gn_iterations_kept"), total("gn_iterations_run")
+    reused, captured = total("scan_graph_reused"), total("scan_graph_captured")
     return dict(root=root, cell=r["cell"], device=r["device"], span_ns=r["span_ns"],
                 untraced_ms_median=statistics.median(r["untraced_ms"]),
                 untraced_ms_max=max(r["untraced_ms"]), traced_ms_median=med,
                 traced_ms_max=max(traced), slow_calls=len(slow), phases=phases, grew_most=grew,
-                gn_useful_share=100.0 * kept / ran if ran else None)
+                gn_useful_share=100.0 * kept / ran if ran else None,
+                graph_reused_share=(100.0 * reused / (reused + captured)
+                                    if reused + captured else None))
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,6 @@
 """Multi-stream and pipelined fusion on the card: the B-stream step
-replayed from a CUDA graph against the same step run eagerly, each gather
+replayed from a CUDA graph (captured by the call, or kept from an earlier
+one) against the same step run eagerly, each gather
 stream of the batched path against the gather's plain version, the
 launches of a replay at two batch sizes, and the pipelined driver against
 the scanned one.
@@ -41,8 +42,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def stacks(bsz, frames=4):
-    return np.stack([np.stack(td.synthetic_sequence(frames, H, W, K, seed=s)[0]) for s in range(bsz)])
+def stacks(bsz, frames=4, seed=0):
+    return np.stack([np.stack(td.synthetic_sequence(frames, H, W, K, seed=s)[0])
+                     for s in range(seed, seed + bsz)])
 
 
 def same_bits(a, b):
@@ -78,6 +80,23 @@ def test_batched_replay_equals_eager_steps(cuda):
         _, single = td.run_fusion_sequence_scanned(list(depth[b]), K, map_capacity=CAP, cfg=CFG)
         np.testing.assert_allclose(met.poses[b], np.stack(single.poses), rtol=0, atol=1e-4)
         assert met.num_map_points[b] == single.num_map_points
+
+
+@pytest.mark.cuda
+def test_kept_batched_replay_equals_eager_steps(cuda):
+    """A call on new streams with the first call's key replays the kept
+    graph, and its pools and poses are still the eager steps' bits."""
+    from cilantro_tpu_torch.slam import scan
+
+    scan.clear()
+    tbf.run_batched_fusion_sequences(stacks(3), K, map_capacity=CAP, cfg=CFG)
+    graph = scan._kept["batched_fusion"][1]
+    depth = stacks(3, seed=5)
+    data, met = tbf.run_batched_fusion_sequences(depth, K, map_capacity=CAP, cfg=CFG)
+    assert scan._kept["batched_fusion"][1] is graph
+    e_data, e_poses = eager_run(depth, cuda)
+    assert same_bits(torch.from_numpy(met.poses), e_poses.cpu())
+    assert same_bits(data, e_data)
 
 
 @pytest.mark.cuda

@@ -23,6 +23,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from cilantro_tpu.core import transforms as jt
 from cilantro_tpu.core.rgbd import CameraIntrinsics as JIntrinsics
@@ -36,6 +37,7 @@ from cilantro_tpu_torch.registration.icp import icp_projective_packed
 from cilantro_tpu_torch.slam import driver as td
 from cilantro_tpu_torch.slam import splat_fusion as tsf
 from cilantro_tpu_torch.slam.fusion import FusionConfig, init_map_from_frame, seed_localize_target
+from cilantro_tpu_torch.slam import scan as scan_mod
 from cilantro_tpu_torch.slam.scan import scan
 
 # tests/test_splat.py:150-208: 128×160 frames, radius 2, margin 16, 3 frames.
@@ -283,6 +285,76 @@ def test_scan_runs_the_step_in_order_on_the_cpu():
     np.testing.assert_array_equal(out.ys[1], [1, 4, 11])
     assert float(out.carry[0]) == 11.0 and calls == [1.0, 2.0, 3.0] * 3
     assert out.device_seconds_per_step is None and out.launches_per_step == {}
+
+
+def _doubling_step(carry, x):
+    (acc,) = carry
+    acc = acc * 2.0 + x
+    return (acc,), (acc, acc.to(torch.int32))
+
+
+def _graph_counters(prof):
+    return [e.name for e in prof.events() if e.name.startswith("cilantro.count.scan_graph_")]
+
+
+def test_keyed_scan_on_the_cpu_equals_keyless():
+    """A key changes nothing on the CPU: the same carry and ``ys`` as a
+    keyless call, no ``scan_graph_*`` counter under a profiler and no
+    graph kept."""
+    xs = torch.tensor([1.0, 2.0, 3.0])
+    plain = scan(_doubling_step, (torch.tensor(0.0),), xs)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        keyed = scan(_doubling_step, (torch.tensor(0.0),), xs, key=("site", 1.0))
+    assert [e.name for e in prof.events()].count("cilantro.scan.step") == 3 * 3
+    assert not _graph_counters(prof)
+    assert not scan_mod._kept
+    assert torch.equal(plain.carry[0], keyed.carry[0])
+    for a, b in zip(plain.ys, keyed.ys):
+        np.testing.assert_array_equal(a, b)
+    assert keyed.launches_per_step == plain.launches_per_step == {}
+
+
+def test_kept_graph_one_slot_a_site(monkeypatch):
+    """The card's lookup with a stand-in for the capture: a keyed call
+    reuses its site's step only where key, carry shapes and dtypes and the
+    ``x`` shape and dtype all match; any other call of the site captures
+    and takes the slot; sites keep apart; a keyless call keeps nothing;
+    ``clear`` drops every slot. One counter a keyed call."""
+    captured = []
+
+    class Capture:
+        def __init__(self, step, carry0, x0, counters):
+            captured.append(self)
+
+    monkeypatch.setattr(scan_mod, "_GraphStep", Capture)
+    monkeypatch.setattr(scan_mod, "_kept", {})
+    carry, x = (torch.zeros(2), torch.zeros((), dtype=torch.int32)), torch.zeros(3)
+
+    def get(key, carry=carry, x=x):
+        return scan_mod._graph_step(_doubling_step, carry, x, (), key)
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        a = get(("a", 1.0))
+        assert get(("a", 1.0)) is a
+        assert get(None) is not a and get(("a", 1.0)) is a
+        b = get(("b", 1.0))
+        assert get(("a", 1.0)) is a and get(("b", 1.0)) is b
+        for other in (dict(key=("a", 2.0)), dict(carry=(torch.zeros(3), carry[1])),
+                      dict(carry=(carry[0], torch.zeros((), dtype=torch.int64))),
+                      dict(x=torch.zeros(4)), dict(x=torch.zeros(3, dtype=torch.float64))):
+            kw = {"key": ("a", 1.0), **other}
+            fresh = get(**kw)
+            assert fresh is not a and get(**kw) is fresh
+            a = get(("a", 1.0))
+            assert a is not fresh and get(("a", 1.0)) is a
+        assert set(scan_mod._kept) == {"a", "b"}
+        scan_mod.clear()
+        assert not scan_mod._kept
+        assert get(("a", 1.0)) is not a
+    counts = _graph_counters(prof)
+    assert len(captured) == 1 + 1 + 1 + 5 * 2 + 1
+    assert counts.count("cilantro.count.scan_graph_captured=1") == len(captured) - 1
+    assert counts.count("cilantro.count.scan_graph_reused=1") == 4 + 5 * 2
 
 
 def test_scanned_drivers_default_to_the_card(monkeypatch):

@@ -4,12 +4,16 @@ version, and the scanned drivers' CUDA-graph replays on the card.
 The kernel repeats the plain version's operations one IEEE rounding each,
 so the two agree bit for bit (compared as int32 views). A replay must
 equal the eager graph-form steps within 1e-5 (the captured cuBLAS calls
-may sum in another order) and launch what one captured step records. The
-tests skip on a machine without a CUDA device. This file imports neither
+may sum in another order) and launch what one captured step records. A
+whole-clip entry's graph kept from an earlier call must give the bits of
+a fresh capture (nothing kept, as in a new process). The tests skip on a
+machine without a CUDA device. This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_scanned_cuda.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ import torch
 from cilantro_tpu_torch.core import transforms as tt
 from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
 from cilantro_tpu_torch.slam import driver as td
+from cilantro_tpu_torch.slam import scan as tscan
 from cilantro_tpu_torch.slam import splat_fusion as tsf
 from cilantro_tpu_torch.slam.fusion import FusionConfig
 
@@ -155,15 +160,19 @@ def _card_calls(k, depths):
 
 @pytest.mark.cuda
 def test_entry_spans_stay_on_the_host(cuda):
-    """With the CUDA activity on: each entry call holds one warm-up and one
-    capture span; no device-side event carries a ``cilantro.`` name or is
-    a user annotation; results are bit for bit those of an untraced call."""
+    """With the CUDA activity on: each entry's first call with nothing
+    kept holds one warm-up and one capture span and counts
+    ``scan_graph_captured``, its second neither span and counts
+    ``scan_graph_reused``; no device-side event carries a ``cilantro.``
+    name or is a user annotation; results are bit for bit those of an
+    untraced call."""
     from torch.profiler import ProfilerActivity, profile
 
     k = CameraIntrinsics.make(140.0, 140.0, 79.5, 63.5)
     depths, _ = td.synthetic_sequence(4, 128, 160, k, seed=0)
     calls = _card_calls(k, depths)
     plain = {name: call() for name, call in calls.items()}
+    tscan.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced = {name: [call(), call()] for name, call in calls.items()}
         torch.cuda.synchronize()
@@ -176,15 +185,142 @@ def test_entry_spans_stay_on_the_host(cuda):
             if e.device_type() != torch.autograd.DeviceType.CUDA
             and e.name().startswith("cilantro.")]
     for name in calls:
-        roots = [e for e in host if e[0] == name]
+        roots = sorted(e for e in host if e[0] == name)  # by start
         assert len(roots) == 2, name
-        for r in roots:
+        for r, captures in zip(roots, (1, 0)):
             inside = [e[0] for e in host if r[1] <= e[1] and e[2] <= r[2]]
-            assert inside.count("cilantro.scan.warmup") == 1, name
-            assert inside.count("cilantro.scan.capture") == 1, name
+            assert inside.count("cilantro.scan.warmup") == captures, name
+            assert inside.count("cilantro.scan.capture") == captures, name
+            assert inside.count("cilantro.count.scan_graph_captured=1") == captures, name
+            assert inside.count("cilantro.count.scan_graph_reused=1") == 1 - captures, name
             assert inside.count("cilantro.scan.pass.untimed") == 1, name
             assert inside.count("cilantro.scan.pass.timed") == 3, name
             assert inside.count("cilantro.scan.step") == 4 * 3, name
         for poses, data in traced[name]:
             np.testing.assert_array_equal(poses, plain[name][0])
             assert torch.equal(data, plain[name][1]), name
+
+
+K_SMALL = CameraIntrinsics.make(140.0, 140.0, 79.5, 63.5)
+
+
+def _clip(seed, h=128, w=160, streams=None):
+    """4 synthetic frames ``(F, H, W)``, or ``(B, F, H, W)`` from seeds
+    ``seed, seed + 1, ...`` for the batched entry."""
+    if streams is None:
+        return np.stack(td.synthetic_sequence(4, h, w, K_SMALL, seed=seed)[0])
+    return np.stack([_clip(seed + b, h, w) for b in range(streams)])
+
+
+ROOTS = {"splat": "cilantro.entry.splat_scanned", "fusion": "cilantro.entry.fusion_scanned",
+         "batched": "cilantro.entry.batched_fusion"}
+
+
+def _entry(name, clip, **cfg):
+    """One call of a whole-clip entry on ``clip``: ``(poses, map,
+    iterations, launches a step)``."""
+    from cilantro_tpu_torch.slam.batched_fusion import run_batched_fusion_sequences
+
+    cap = 4 * clip.shape[-2] * clip.shape[-1]
+    stats = {}
+    if name == "splat":
+        smap, poses, _, _ = tsf.run_splat_sequence_scanned(
+            list(clip), K_SMALL, cfg=tsf.SplatConfig(radius=2, margin=16, **cfg), stats=stats)
+        return np.stack(poses), smap.rows, stats["iterations"], stats["launches_per_frame"]
+    if name == "fusion":
+        fmap, m = td.run_fusion_sequence_scanned(list(clip), K_SMALL, map_capacity=cap,
+                                                 cfg=FusionConfig(**cfg), stats=stats)
+        return np.stack(m.poses), fmap.data, m.icp_iterations, stats["launches_per_frame"]
+    data, m = run_batched_fusion_sequences(clip, K_SMALL, map_capacity=cap,
+                                           cfg=FusionConfig(**cfg), stats=stats)
+    return m.poses, data, stats["icp_iterations"], stats["launches_per_step"]
+
+
+@contextlib.contextmanager
+def _window(name, calls: list):
+    """One profiler window (CPU and CUDA activity) over the block; after
+    it, ``calls`` holds, for each call of ``name``'s entry in it, the
+    names of the ``cilantro.`` host events inside its entry span. One
+    window a test: some two dozen windows, each over entry calls that
+    capture and replay graphs, left a later window in the process
+    recording no kernel (``test_torch_g2_cuda.py``); 60 windows over
+    plain kernels did not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield
+        torch.cuda.synchronize()
+    host = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() != torch.autograd.DeviceType.CUDA
+            and e.name().startswith("cilantro.")]
+    for r in sorted(e for e in host if e[0] == ROOTS[name]):
+        calls.append([e[0] for e in host if r[1] <= e[1] and e[2] <= r[2]])
+
+
+def _same(a, b):
+    """Poses, map and iterations bit for bit, and equal launches."""
+    np.testing.assert_array_equal(a[0].view(np.int32), b[0].view(np.int32))
+    assert torch.equal(a[1].contiguous().view(torch.int32), b[1].contiguous().view(torch.int32))
+    np.testing.assert_array_equal(np.asarray(a[2]), np.asarray(b[2]))
+    assert a[3] == b[3]
+
+
+def _captured(names):
+    return (names.count("cilantro.count.scan_graph_captured=1") == 1
+            and names.count("cilantro.scan.capture") == 1
+            and names.count("cilantro.scan.warmup") == 1
+            and "cilantro.count.scan_graph_reused=1" not in names)
+
+
+def _reused(names):
+    return (names.count("cilantro.count.scan_graph_reused=1") == 1
+            and "cilantro.count.scan_graph_captured=1" not in names
+            and "cilantro.scan.warmup" not in names and "cilantro.scan.capture" not in names)
+
+
+def _streams(name):
+    return 2 if name == "batched" else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["splat", "fusion", "batched"])
+def test_kept_graph_matches_a_fresh_capture(cuda, name):
+    """Clip A captures; clip B replays the kept graph (no warm-up or
+    capture span, ``scan_graph_reused``); after ``clear`` clip B captures
+    anew and gives the same bits and launches as the kept graph did."""
+    tscan.clear()
+    clip_b = _clip(10, streams=_streams(name))
+    calls = []
+    with _window(name, calls):
+        _entry(name, _clip(0, streams=_streams(name)))
+        kept = _entry(name, clip_b)
+        tscan.clear()
+        fresh = _entry(name, clip_b)
+    assert len(calls) == 3
+    assert _captured(calls[0]) and _reused(calls[1]) and _captured(calls[2])
+    _same(kept, fresh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,change", [
+    ("splat", dict(cfg=dict(icp_iterations=4))), ("splat", dict(h=96, w=128)),
+    ("fusion", dict(cfg=dict(localize_stride=2))), ("fusion", dict(h=96, w=128)),
+    ("batched", dict(cfg=dict(localize_stride=2))), ("batched", dict(streams=3)),
+])
+def test_changed_key_captures_anew(cuda, name, change):
+    """After a call on clip A, a call whose key differs (a configuration
+    field, the frame shape, the batch size) captures anew, and gives the
+    bits of the same call with nothing kept."""
+    tscan.clear()
+    clip = _clip(10, change.get("h", 128), change.get("w", 160),
+                 change.get("streams", _streams(name)))
+    cfg = change.get("cfg", {})
+    calls = []
+    with _window(name, calls):
+        _entry(name, _clip(0, streams=_streams(name)))
+        got = _entry(name, clip, **cfg)
+        tscan.clear()
+        fresh = _entry(name, clip, **cfg)
+    assert len(calls) == 3 and all(_captured(c) for c in calls)
+    _same(got, fresh)
