@@ -52,11 +52,11 @@ in order; any failure raises and exits non-zero without the final line:
    two-call yardstick;
 6. rigid ICP, the second main path: ``icp_multires`` registers frame 1 of
    the sequence onto frame 0 (307,200 points each) with the JAX bench's
-   settings; launches per level (the compact kernel must run on both),
-   iterations, ms by the host clock after a warm-up run, the error against
-   the true relative pose beside that pose's size (< 5e-4 m and < 1e-4 rad,
-   well inside the 5 mm and 4e-4 rad the frames are apart) and a profiler
-   window;
+   settings; launches per level (the compact kernel must run on both,
+   the GN step once an ICP iteration), iterations, ms by the host clock
+   after a warm-up run, the error against the true relative pose beside
+   that pose's size (< 5e-4 m and < 1e-4 rad, well inside the 5 mm and
+   4e-4 rad the frames are apart) and a profiler window;
 7. ``icp`` with the ``entry()`` settings (a 0.5 m gate) on the same pair:
    more tile pairs survive than the budget holds, so the masked kernel runs;
 8. ``entry()`` on the card: the fused kernel must run, the toy pair's
@@ -69,10 +69,11 @@ in order; any failure raises and exits non-zero without the final line:
     same 16 frames with the JAX bench's settings (pool of 430,080 rows,
     stride-2 localize). The gather kernel must launch 2 × 15 + Σ ICP
     iterations times (integrate's model-row gather and inverse-gather
-    update per frame, one per ICP iteration); ATE < 2e-4 m and more than
-    0.9·H·W finite live points. A repeat gives the host clock's spread; the
-    same run with the gather replaced by its plain version must launch
-    nothing and give the same poses and pool bit for bit;
+    update per frame, one per ICP iteration), the GN step Σ ICP
+    iterations times; ATE < 2e-4 m and more than 0.9·H·W finite live
+    points. A repeat gives the host clock's spread; the same run with the
+    gather replaced by its plain version must launch nothing and give the
+    same poses and pool bit for bit;
 11. the gather kernel against its plain version, bit for bit, on the first
     stream of each call site of phase 10, a random stream and one with 30%
     wildcards at the integrate shape, timed as in phase 2 beside
@@ -83,7 +84,14 @@ in order; any failure raises and exits non-zero without the final line:
 12. a per-stage time split of the pool frame and a profiler window
     (informational);
 13. the first 4 frames of the pool pipeline on the CPU (the plain
-    versions), agreeing with the card within 1e-4 m / 1e-4 rad;
+    versions), agreeing with the card within 1e-4 m / 1e-4 rad; then
+    the GN step's launches (``csrc/gn_kernels.cu``) on their last call on
+    phase 6 (the fine level, the combined metric) and on phase 10 (a
+    localize step, the symmetric metric), bit for bit against the plain
+    version (the workspace's written partials, the output and ``valid``),
+    timed as in phase 2 beside the rows' byte bound (each row read once)
+    and the einsum route (one GN iteration of the estimator with the
+    kernels' route off);
 14. kNN normals, the fourth main path: ``PointCloud.with_normals_knn(k=12)``
     on frame 0 back-projected by ``depth_to_points`` (307,200 rows, invalid
     pixels masked). The compact kNN kernel must launch; the radius-doubling
@@ -135,8 +143,9 @@ in order; any failure raises and exits non-zero without the final line:
     kept and masked; ATE < 2e-3 m and poses within 1e-5 of phase 3's, bit
     identity reported;
 22. ``run_fusion_sequence_scanned`` on phase 10's inputs, measured as
-    phase 21: ATE < 2e-4 m, poses within 1e-4 of phase 10's, and the
-    gather kernel launched 2 + 6 times a replay, (2 + 6) × 15 a run.
+    phase 21: ATE < 2e-4 m, poses within 1e-4 of phase 10's, the
+    gather kernel launched 2 + 6 times a replay, (2 + 6) × 15 a run, the
+    rotation kernel and the GN step 6 times a replay.
 23. the non-rigid warp at the JAX bench's width (bench.py:130-186,
     862-887, with a synthetic source: ``tests/test_warp_field.py``'s
     height-field surface at 120,000 points scaled to a 0.72 m patch, the
@@ -357,9 +366,11 @@ splat fusion for the splat kernels, phase 6 for the compact kernel, phase
 7 for the masked one, phase 8 for the fused one, phase 10 for the gather,
 phase 14 for the compact kNN kernel, phase 16 for the full one, phase 20
 for ``scale2``, splat fusion for the rotation kernel (which replaces no
-Pallas kernel: ``jnp.linalg.svd`` inside XLA). Phases 21-22 count a
-replay's launches at capture, where the wrappers run. The ``warp_paths``
-line before the kernels line gives each kernel's launches on phases 23-25,
+Pallas kernel: ``jnp.linalg.svd`` inside XLA), phases 6 and 10 for the GN
+step (an entry each; it replaces the einsums of the JAX estimator inside
+XLA, no Pallas kernel). Phases 21-22 count a replay's launches at capture,
+where the wrappers run. The ``warp_paths`` line before the kernels line
+gives each kernel's launches on phases 23-25,
 the ``slam_paths`` line on phases 26-27 (by stage; the scanned front end's
 wrappers run at its warm-up step and its capture, and the line gives its
 launches a replay beside them), the ``batched_paths`` line on phases
@@ -979,6 +990,8 @@ def icp_main_path(nn, icp_mod, pair, rel, card):
     ``icp`` call, so wrapping ``icp`` snapshots the counts per level."""
     from unittest import mock
 
+    from cilantro_tpu_torch.registration import gn_step as gs
+
     (sp, _, sv), (dp, dn, dv) = pair
 
     def run():
@@ -993,22 +1006,28 @@ def icp_main_path(nn, icp_mod, pair, rel, card):
     level_icp = icp_mod.icp
 
     def counted_icp(*args, **kwargs):
-        snaps.append(dict(nn.launch_counts))
+        snaps.append({**nn.launch_counts, **gs.launch_counts})
         res = level_icp(*args, **kwargs)
         iterations.append(int(res.iterations))
         return res
 
     nn.reset_launch_counts()
+    gs.reset_launch_counts()
+    kept = {}
     t0 = time.perf_counter()
-    with mock.patch.object(icp_mod, "icp", counted_icp):
+    with mock.patch.object(icp_mod, "icp", counted_icp), last_kernel_calls(kept, GN_STEP_WRAPPERS):
         res = run()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    snaps.append(dict(nn.launch_counts))
+    snaps.append({**nn.launch_counts, **gs.launch_counts})
     per_level = [{k: b[k] - a[k] for k in a} for a, b in zip(snaps, snaps[1:])]
-    launches = dict(nn.launch_counts)
+    launches = {**nn.launch_counts, **gs.launch_counts}
     if any(lv["nn1_compact"] == 0 for lv in per_level):
         raise AssertionError(f"the compact kernel did not run on every level: {per_level}")
+    if [lv["gn_step"] for lv in per_level] != iterations:
+        raise AssertionError(f"GN step launches a level {per_level}, want one an ICP iteration {iterations}")
+    GN_STEP_CALLS["phase 6, icp_multires fine level (combined metric), last GN step"] = (
+        kept["gn_step"], launches["gn_step"])
     dt, dr = gt_error(res.transform.linear, res.transform.translation, rel)
     true_t, true_r = gt_error(torch.eye(3), torch.zeros(3), rel)  # the motion itself
     if not (dt < 5e-4 and dr < 1e-4):
@@ -1169,6 +1188,7 @@ REPLACES = {
     "knn_full": "cilantro_tpu/neighbors/pallas_nn.py:861",
     "knn_compact": "cilantro_tpu/neighbors/pallas_nn.py:821",
     "scale2": "tools/wide_row_probe.py:160",
+    "gn_step": "cilantro_tpu/registration/transform_estimation.py:117",
 }
 
 
@@ -1211,6 +1231,7 @@ def pool_main_path(depths, gt, k, card):
     host clock's spread and the same sequence with the gather replaced by
     its plain version (no launch, the same bits)."""
     from cilantro_tpu_torch.core import coalesced as cg
+    from cilantro_tpu_torch.registration import gn_step as gs
     from cilantro_tpu_torch.slam.driver import ate_rmse, run_fusion_sequence
 
     streams = {}
@@ -1225,14 +1246,21 @@ def pool_main_path(depths, gt, k, card):
                                    cfg=pool_config(), device="cuda")
 
     cg.reset_launch_counts()
-    with gather_replaced(recording):
+    gs.reset_launch_counts()
+    kept = {}
+    with gather_replaced(recording), last_kernel_calls(kept, GN_STEP_WRAPPERS):
         fmap, met = run()
     torch.cuda.synchronize()
     launches = cg.launch_counts["coalesced_gather"]
+    gn_launches = gs.launch_counts["gn_step"]
     tracked = FRAMES - 1
     want = 2 * tracked + sum(met.icp_iterations[1:])
     if launches != want:
         raise AssertionError(f"pool main path: {launches} gather launches, want 2·{tracked} + ICP = {want}")
+    if gn_launches != sum(met.icp_iterations[1:]):
+        raise AssertionError(f"pool main path: {gn_launches} GN step launches, want one an ICP iteration")
+    GN_STEP_CALLS["phase 10, run_fusion_sequence localize (symmetric metric), last GN step"] = (
+        kept["gn_step"], gn_launches)
     if sorted(streams) != ["icp_projective", "integrate_rows", "inverse_gather_update"]:
         raise AssertionError(f"pool main path reached the gather from {sorted(streams)}")
     ate = ate_rmse(met.poses, gt, device="cuda")
@@ -1257,7 +1285,7 @@ def pool_main_path(depths, gt, k, card):
     emit(
         phase="pool_main_path", pipeline="pool", frames=FRAMES, height=H, width=W,
         map_capacity=POOL_CAPACITY, localize_stride=2,
-        launches={"coalesced_gather": launches}, icp_iterations=met.icp_iterations,
+        launches={"coalesced_gather": launches, "gn_step": gn_launches}, icp_iterations=met.icp_iterations,
         ms_per_frame=spf * 1e3, frames_per_s=1.0 / spf,
         ms_per_frame_repeat=met2.seconds_per_frame * 1e3, frames_per_s_repeat=1.0 / met2.seconds_per_frame,
         ms_per_frame_plain_gather=met_plain.seconds_per_frame * 1e3,
@@ -1269,6 +1297,9 @@ def pool_main_path(depths, gt, k, card):
 # Every gather stream a phase held bit for bit, by label: ``(src, idx)``
 # for the A/B of the gather's designs (phase 37).
 GATHER_STREAMS: dict = {}
+# The GN step's last call on phases 6 and 10, by label: ``((args, kwargs),
+# launches)`` for its kernels-line entries.
+GN_STEP_CALLS: dict = {}
 
 
 def gather_bytes(src, idx) -> dict:
@@ -2072,7 +2103,7 @@ def scanned_pool_path(depths, gt, k, loop_poses, loop_busy_ms, card):
     n = cfg.icp_iterations
     return scanned_phase(
         "scanned_pool", run_loop, run_graph, loop_poses, gt, 1e-4,
-        {"coalesced_gather": 2 + n, "project_to_rotation": n}, 2e-4, loop_busy_ms, card,
+        {"coalesced_gather": 2 + n, "project_to_rotation": n, "gn_step": n}, 2e-4, loop_busy_ms, card,
     )
 
 
@@ -2106,7 +2137,9 @@ KERNEL_WRAPPERS = (
     ("project_to_rotation", "cilantro_tpu_torch.registration.warp_field_batched", "project_to_rotation"),
     ("project_to_rotation", "cilantro_tpu_torch.slam.pose_graph", "project_to_rotation"),
     ("project_to_rotation", "cilantro_tpu_torch.slam.bundle_adjustment", "project_to_rotation"),
+    ("gn_step", "cilantro_tpu_torch.registration.gn_step", "gauss_newton_3d"),
 )
+GN_STEP_WRAPPERS = KERNEL_WRAPPERS[-1:]
 
 
 def reset_all_counts():
@@ -2115,9 +2148,10 @@ def reset_all_counts():
     from 0 starts with every entry capturing."""
     from cilantro_tpu_torch.core import coalesced, transforms
     from cilantro_tpu_torch.neighbors import fused_knn, fused_nn
+    from cilantro_tpu_torch.registration import gn_step
     from cilantro_tpu_torch.slam import scan
 
-    for mod in (coalesced, transforms, fused_knn, fused_nn):
+    for mod in (coalesced, transforms, fused_knn, fused_nn, gn_step):
         mod.reset_launch_counts()
     scan.clear()
 
@@ -2125,9 +2159,10 @@ def reset_all_counts():
 def all_counts() -> dict:
     from cilantro_tpu_torch.core import coalesced, transforms
     from cilantro_tpu_torch.neighbors import fused_knn, fused_nn
+    from cilantro_tpu_torch.registration import gn_step
 
     out = {}
-    for mod in (fused_nn, coalesced, fused_knn, transforms):
+    for mod in (fused_nn, coalesced, fused_knn, transforms, gn_step):
         out.update(mod.launch_counts)
     return out
 
@@ -2271,6 +2306,7 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
     from cilantro_tpu_torch.core import transforms as tfm
     from cilantro_tpu_torch.neighbors import fused_knn as fk
     from cilantro_tpu_torch.neighbors import fused_nn as nn
+    from cilantro_tpu_torch.registration import gn_step as gs
 
     out = {}
     for name, (args, kwargs) in kept.items():
@@ -2336,6 +2372,17 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
             n = x.numel() // 9
             pairs, nbytes = None, ROTATION_BYTES * n
             extra = dict(matrices=n, library_is="none: no single PyTorch call")
+        elif name == "gn_step":
+            rows = gs.step_rows(*args[:6])
+            n = rows[0].shape[0]
+            kernel = lambda: gn_step_outputs(gs.gn_step_kernel(*rows), n)  # noqa: E731
+            plain = lambda: gn_step_outputs(gs.gn_step_plain(*rows, None), n)  # noqa: E731
+            library = lambda: einsum_gn_step(rows)  # noqa: E731
+            pairs, nbytes = None, gn_step_bytes(rows)
+            extra = dict(rows=n, metric="combined" if rows[2] is None else "symmetric",
+                         pass_bytes=gn_step_bytes(rows, passes=True),
+                         library_is="the einsum route: the estimator, one GN iteration, with the kernels' "
+                                    "route off (a yardstick)")
         elif name == "coalesced_gather":
             src, idx = args
             kernel = lambda: cg.coalesced_gather(src, idx)  # noqa: E731
@@ -2380,6 +2427,38 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
              plain_timer="host clock, the compared run" if quick else "host clock, median of 3", **entry, **extra)
         out[name] = entry
     return out
+
+
+def gn_step_outputs(step, n):
+    """A GN step call's ``(ws, out, valid)`` as compared: the workspace's
+    written parts, the output, ``valid`` as an int32."""
+    from cilantro_tpu_torch.registration import gn_step as gs
+
+    ws, out, valid = step
+    return gs.written(ws, n), out, valid.to(torch.int32)
+
+
+def gn_step_bytes(rows, passes=False) -> int:
+    """The GN step's row bytes: each row of the six arrays read once (the
+    bound), or as the two passes of a first iteration read them (the means
+    pass points and weights, the sums pass every array)."""
+    means = 4 * (rows[0].shape[0] * 8)
+    every = 4 * sum(t.numel() for t in rows if t is not None)
+    return means + every if passes else every
+
+
+def einsum_gn_step(rows):
+    """One GN iteration of the estimator on ``rows`` by the einsum route."""
+    from unittest import mock
+
+    from cilantro_tpu_torch.registration import gn_step as gs
+    from cilantro_tpu_torch.registration import transform_estimation as te
+
+    src, dst, ns, nd, wpp, wpl = rows
+    with mock.patch.object(gs, "takes", lambda *a: False):
+        if ns is None:
+            return te.estimate_rigid_combined_metric(src, dst, nd, point_weights=wpp, plane_weights=wpl)
+        return te.estimate_rigid_symmetric_metric(src, dst, ns, nd, point_weights=wpp, plane_weights=wpl)
 
 
 def warp_stage_split(tw, graph, src_t, dst_t, tf_ref):
@@ -3052,11 +3131,12 @@ def batched_path(card):
     if not max(diffs) <= 1e-4:
         raise AssertionError(f"batched path: streams {diffs} from their single-stream runs, bound 1e-4")
 
-    # Launches a replay: B = 1 against B = 8 and the single-stream replay.
+    # Launches a replay: B = 1 against B = 8 and the single-stream replay
+    # (whose GN step takes the one-problem kernels, which a batch does not).
     one = {}
     _, met_one = bf.run_batched_fusion_sequences(stacks[:1], k, map_capacity=POOL_CAPACITY, cfg=cfg,
                                                  device="cuda", stats=one)
-    if not (per_step == one["launches_per_step"] == single_launches):
+    if not (per_step == one["launches_per_step"] == {name: single_launches[name] for name in per_step}):
         raise AssertionError(f"launches a replay: B = 8 {per_step}, B = 1 {one['launches_per_step']}, "
                              f"single stream {single_launches}")
 
@@ -4565,6 +4645,7 @@ KERNEL_SOURCES = {
     "nn1_compact": "cilantro_tpu_torch/csrc/nn1_kernels.cu",
     "coalesced_gather": "cilantro_tpu_torch/csrc/gather_kernels.cu",
     "project_to_rotation": "cilantro_tpu_torch/csrc/rotation_kernels.cu",
+    "gn_step": "cilantro_tpu_torch/csrc/gn_kernels.cu",
 }
 
 
@@ -4787,6 +4868,12 @@ def main() -> int:
         emit(phase="pool_driver_frames", error=f"{type(e).__name__}: {e}")
     pool_card_vs_cpu(cg, depths, k, pool_met.poses)
 
+    # 13b. The GN step's kernels on their last calls on phases 6 and 10.
+    gn_entries = []
+    for path, (call, n_launches) in GN_STEP_CALLS.items():
+        entry = warp_kernel_checks({"gn_step": call}, {"gn_step": n_launches}, path, phase="kernel_vs_plain")
+        gn_entries.append(dict(entry["gn_step"], path=path))
+
     # 14-19. The neighbour engines and kNN normals with the two kNN kernels
     # (every full-kernel call from here to phase 39 kept for phase 40).
     from cilantro_tpu_torch.neighbors import fused_knn
@@ -4910,7 +4997,7 @@ def main() -> int:
     # The kernels line, the card, the result.
     kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]
     kernels.append(gather_entry)
-    kernels += [knn["knn_full"], knn["knn_compact"], probe, rotation]
+    kernels += [knn["knn_full"], knn["knn_compact"], probe, rotation] + gn_entries
     for entry in kernels:
         if entry["name"] in sharded_launches:
             entry["sharded_launches"] = sharded_launches[entry["name"]]

@@ -38,7 +38,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "splat_kernels", "nn1_kernels", "gather_kernels", "knn_kernels", "probe_kernels",
-    "rotation_kernels",
+    "rotation_kernels", "gn_kernels",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -15,6 +15,13 @@ problems (``(B, N, 3)`` arrays, ``(B, N)`` weights) and return ``(B,)``
 transforms. A GN batch runs every iteration, each problem's estimate
 frozen once its own step norm falls below the tolerance, and never reads
 back to the host. The 2-D metrics take one problem.
+
+One 3-D problem of float32 CUDA tensors takes the three launches of
+``csrc/gn_kernels.cu`` (:mod:`.gn_step`) instead of the einsum path: the
+same step, summed in float64 in a fixed order. Every other input (the CPU,
+2-D, a batch, another type, no GN iteration: the uncentred identity) keeps
+the einsum path's ops. Each GN iteration leaves a ``gn_step_route_fused``
+or ``gn_step_route_plain`` counter (:func:`..utils.profiling.count`).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from ..core.transforms import (
     rot2d,
     skew3,
 )
+from ..utils.profiling import count
+from . import gn_step
 
 _EPS = 1e-12
 
@@ -266,6 +275,7 @@ def _gauss_newton(src_c, dst_c, w_pp, w_pl, normals_of, max_iterations, converge
     tf = Transform(_eye(d, src_c).expand(batch + (d, d)), _zeros(batch + (d,), src_c))
     active = torch.ones(batch, dtype=torch.bool, device=src_c.device) if batch else None
     for it in range(max_iterations):
+        count("gn_step_route_plain", 1)
         s = (per_stream(tf) if batch else tf).apply(src_c)
         # Rotation rows couple (d + s): the two-sided linearization.
         jtj, jtr = acc(s, dst_c, normals_of(tf), w_pp, w_pl, omega_points=s + dst_c)
@@ -306,6 +316,9 @@ def estimate_rigid_combined_metric(
     d = src.shape[-1]
     if d not in (2, 3):
         raise ValueError(f"the rigid metrics take 2-D or 3-D points, got D={d}")
+    if max_iterations >= 1 and gn_step.takes(src, dst, dst_normals, point_weights, plane_weights):
+        return gn_step.gauss_newton_3d(src, dst, None, dst_normals, point_weights, plane_weights,
+                                       max_iterations, convergence_tol)
     w_pp = _zeros(src.shape[:-1], src) if point_weights is None else point_weights
     w_pl = _ones(src.shape[:-1], src) if plane_weights is None else plane_weights
     mu_s, mu_d, _ = _weighted_means(src, dst, w_pp + w_pl)
@@ -333,6 +346,10 @@ def estimate_rigid_symmetric_metric(
     d = src.shape[-1]
     if d not in (2, 3):
         raise ValueError(f"the rigid metrics take 2-D or 3-D points, got D={d}")
+    if max_iterations >= 1 and gn_step.takes(src, dst, src_normals, dst_normals, point_weights,
+                                             plane_weights):
+        return gn_step.gauss_newton_3d(src, dst, src_normals, dst_normals, point_weights,
+                                       plane_weights, max_iterations, convergence_tol)
     w_pp = _zeros(src.shape[:-1], src) if point_weights is None else point_weights
     w_pl = _ones(src.shape[:-1], src) if plane_weights is None else plane_weights
     mu_s, mu_d, _ = _weighted_means(src, dst, w_pp + w_pl)

@@ -45,6 +45,7 @@ from ..core.coalesced import launch_counts as coalesced_launch_counts
 from ..core.rgbd import CameraIntrinsics, depth_to_points_normals
 from ..core.transforms import Transform, identity
 from ..core.transforms import launch_counts as transforms_launch_counts
+from ..registration.gn_step import launch_counts as gn_step_launch_counts
 from .driver import FusionMetrics
 from .fusion import FusionConfig, FusionMap, fusion_step, init_map_from_frame, seed_localize_target
 from .scan import RUNS, scan
@@ -181,7 +182,7 @@ def run_fusion_sequence_pipelined(
 
     out = scan(
         step, (fmap0.data, pose0.linear, pose0.translation, packed0) + tuple(inflight0), xs,
-        counters=(coalesced_launch_counts, transforms_launch_counts), runs=RUNS,
+        counters=(coalesced_launch_counts, transforms_launch_counts, gn_step_launch_counts), runs=RUNS,
     )
     fmap = FusionMap(data=out.carry[0])
     mats, iterations = out.ys

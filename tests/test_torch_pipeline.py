@@ -49,7 +49,7 @@ def test_pipelined_equals_scanned_bit_for_bit(sequence, port_pipelined):
     assert torch.equal(fmap_p.data.view(torch.int32), fmap_s.data.view(torch.int32))
     assert met_p.num_map_points == met_s.num_map_points
     assert stats == {"device_seconds_per_frame": None,
-                     "launches_per_frame": {"coalesced_gather": 0, "project_to_rotation": 0}}
+                     "launches_per_frame": {"coalesced_gather": 0, "project_to_rotation": 0, "gn_step": 0}}
     assert met_p.seconds_per_frame > 0
     assert tdrv.ate_rmse(met_p.poses, gt, device="cpu") < 5e-3
 

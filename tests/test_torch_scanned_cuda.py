@@ -125,9 +125,11 @@ def test_scanned_pool_replays_the_graph_form(cuda, stride):
     np.testing.assert_allclose(np.stack(m.poses), np.stack(loop.poses), atol=1e-5, rtol=0)
     assert m.icp_iterations == loop.icp_iterations
     # A pool of 4·H·W rows takes the row-scatter update (no gather), so a
-    # frame gathers once to integrate and once an ICP iteration.
+    # frame gathers once to integrate and once an ICP iteration; each ICP
+    # iteration takes one GN step.
     assert stats["launches_per_frame"] == {"coalesced_gather": 1 + cfg.icp_iterations,
-                                           "project_to_rotation": cfg.icp_iterations}
+                                           "project_to_rotation": cfg.icp_iterations,
+                                           "gn_step": cfg.icp_iterations}
     assert fmap.data.device.type == "cuda" and m.num_map_points == int(fmap.num_points())
     assert td.ate_rmse(m.poses, gt) < 0.01
 

@@ -110,14 +110,23 @@ def test_span_names_and_nesting(traced):
 
 
 def test_gn_counters_match_returned_iterations(traced):
-    _, _, (_, _, iterations, cap, streams), evs = traced
+    entry, _, (_, _, iterations, cap, streams), evs = traced
     (fin,) = _named(evs, "cilantro.entry.finish")
-    counts = [e for e in evs if e[0].startswith("cilantro.count.")]
-    assert all(_inside(c, fin) for c in counts)
-    found = {m.group(1): int(m.group(2)) for m in (COUNT.match(c[0]) for c in counts)}
+    counts = [(COUNT.match(e[0]), e) for e in evs if e[0].startswith("cilantro.count.")]
+    route = [(m, e) for m, e in counts if m.group(1).startswith("gn_step_route_")]
+    gn = [(m, e) for m, e in counts if not m.group(1).startswith("gn_step_route_")]
+    assert all(_inside(e, fin) for _, e in gn)
+    found = {m.group(1): int(m.group(2)) for m, _ in gn}
     assert found == {"gn_iterations_kept": int(np.sum(iterations)),
                      "gn_iterations_run": cap * (FRAMES - 1) * streams}
     assert 0 < found["gn_iterations_kept"] <= found["gn_iterations_run"]
+    # The estimator's route counters, inside the steps: on the CPU every
+    # pool GN iteration (one a batch's iteration) takes the einsum route;
+    # splat sums its own normal equations.
+    steps = _named(evs, "cilantro.scan.step")
+    assert all(m.group(0) == "cilantro.count.gn_step_route_plain=1" for m, _ in route)
+    assert all(any(_inside(e, s) for s in steps) for _, e in route)
+    assert len(route) == (0 if entry == "cilantro.entry.splat_scanned" else RUNS * (FRAMES - 1) * cap)
 
 
 def test_results_bit_for_bit_with_and_without_profiler(traced):
