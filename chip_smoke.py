@@ -7,9 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card and ``nvcc``
 (``/usr/local/cuda`` or on ``PATH``). It imports nothing of JAX. Phases,
 in order; any failure raises and exits non-zero without the final line:
 
-1. build the CUDA kernels from ``cilantro_tpu_torch/csrc/`` and phase
-   37's gather variants (one ``nvcc`` per library, all at once, all
-   finished before anything is timed);
+1. build the CUDA kernels from ``cilantro_tpu_torch/csrc/`` (one
+   ``nvcc`` per library, all at once, all finished before anything is
+   timed);
 2. hold each kernel against its plain PyTorch version on the card at the
    shapes splat fusion gives it at 640×480 (bit for bit: they are pure
    selects), and time kernel and plain version (CUDA events, median of 25
@@ -312,17 +312,6 @@ in order; any failure raises and exits non-zero without the final line:
     the one-device step), the pipeline bit for bit the scanned driver,
     every replicated output the same on both ranks; host and CUDA-event
     ms of each. Then a ``{"parallel_paths": ...}`` line;
-37. beside phase 11, the gather's designs in one A/B
-    (``cilantro_tpu_torch/tools/gather_variants.py``, built with the
-    kernels in phase 1): the first design, the kernel as built, its
-    source variants and the other designs of
-    ``tools/gather_alternatives.cu``, each held bit for bit against the
-    plain gather and timed as in phase 2, forward then backward, on every
-    stream that phases 11, 25, 26, 28, 34 and 35 held, and on rows at a
-    stride of 1, 2 and 4 of the B = 8 ICP source (those and the B = 8 ICP
-    stream also with the L2 cleared before each run); then a
-    ``{"gather_designs": ...}`` line with each stream's time as built
-    against the first design;
 38. every example of ``cilantro_tpu_torch/examples/`` through its
     ``main([..., "--device", "cuda", "--out", tmp])`` at its default,
     full-width input (the 120,000-point height field, 640x480 frames, the
@@ -551,7 +540,7 @@ def kernel_checks(splat, dev):
 # 162 candidate sources), this script's phase 2 case (CUDA events) and the
 # path's frames (the profile phase's mean over 6 frames);
 # flow_select_rows (one thread a pixel, four divisions, scalar stores),
-# tools/select_rows_variants.py: the mean of its two visits of each case.
+# PR 8's A/B of the two designs: the mean of its two visits of each case.
 PREVIOUS_SPLAT_MS = {
     ("splat_argmin2", "tie-heavy random"): 0.05951999872922897,
     ("splat_argmin2", "splat path frame"): 0.048864666666666993,
@@ -950,10 +939,10 @@ def nn1_kernel_checks(nn, pair, coarse, entry_inputs):
                           over_budget=True)
     out["nn1_masked"] = wide["nn1_masked"]
     # The compact wrapper's fallback: a budget one short of the survivors.
-    before = dict(nn.launch_counts)
+    before = counts(*NN1_KERNELS)
     k_out = nn._nn1_compact(qp, kp, within, budget=survivors - 1, tile_q=tq, tile_m=tm, terms=terms)
     torch.cuda.synchronize()
-    routed = {n: nn.launch_counts[n] - before[n] for n in before}
+    routed = {n: v - before[n] for n, v in counts(*before).items()}
     if routed != {"nn1_fused": 0, "nn1_masked": 1, "nn1_compact": 0}:
         raise AssertionError(f"the over-budget compact call launched {routed}")
     assert_same_bits("nn1_compact fallback", [t.reshape(-1) for t in k_out],
@@ -984,13 +973,11 @@ def gt_error(linear, translation, rel):
     return dt, rot_angle(linear.cpu().numpy(), rel[:3, :3])
 
 
-def icp_main_path(nn, icp_mod, pair, rel, card):
+def icp_main_path(icp_mod, pair, rel, card):
     """Phase 6: ``icp_multires`` on the 640×480 pair with the bench's
     settings; returns the launches of the timed run. Each level is one
     ``icp`` call, so wrapping ``icp`` snapshots the counts per level."""
     from unittest import mock
-
-    from cilantro_tpu_torch.registration import gn_step as gs
 
     (sp, _, sv), (dp, dn, dv) = pair
 
@@ -1006,22 +993,21 @@ def icp_main_path(nn, icp_mod, pair, rel, card):
     level_icp = icp_mod.icp
 
     def counted_icp(*args, **kwargs):
-        snaps.append({**nn.launch_counts, **gs.launch_counts})
+        snaps.append(counts(*NN1_KERNELS, "gn_step"))
         res = level_icp(*args, **kwargs)
         iterations.append(int(res.iterations))
         return res
 
-    nn.reset_launch_counts()
-    gs.reset_launch_counts()
+    reset_counts()
     kept = {}
     t0 = time.perf_counter()
     with mock.patch.object(icp_mod, "icp", counted_icp), last_kernel_calls(kept, GN_STEP_WRAPPERS):
         res = run()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    snaps.append({**nn.launch_counts, **gs.launch_counts})
+    snaps.append(counts(*NN1_KERNELS, "gn_step"))
     per_level = [{k: b[k] - a[k] for k in a} for a, b in zip(snaps, snaps[1:])]
-    launches = {**nn.launch_counts, **gs.launch_counts}
+    launches = counts(*NN1_KERNELS, "gn_step")
     if any(lv["nn1_compact"] == 0 for lv in per_level):
         raise AssertionError(f"the compact kernel did not run on every level: {per_level}")
     if [lv["gn_step"] for lv in per_level] != iterations:
@@ -1061,11 +1047,11 @@ def icp_main_path(nn, icp_mod, pair, rel, card):
     return launches
 
 
-def wide_gate_path(nn, icp_mod, pair, rel):
+def wide_gate_path(icp_mod, pair, rel):
     """Phase 7: ``icp`` with the ``entry()`` settings (0.5 m gate) on the
     640×480 pair: the survivors overflow the budget, each pass is masked."""
     (sp, _, sv), (dp, dn, dv) = pair
-    nn.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = icp_mod.icp(
         sp, dp, dst_normals=dn, src_valid=sv, dst_valid=dv, metric="combined",
@@ -1073,7 +1059,7 @@ def wide_gate_path(nn, icp_mod, pair, rel):
     )
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(nn.launch_counts)
+    launches = counts(*NN1_KERNELS)
     if launches["nn1_masked"] == 0:
         raise AssertionError(f"the wide-gate path did not run the masked kernel: {launches}")
     dt, dr = gt_error(res.transform.linear, res.transform.translation, rel)
@@ -1093,7 +1079,7 @@ def rigid_fit(a: np.ndarray, b: np.ndarray):
     return r, cb - r @ ca
 
 
-def entry_path(nn):
+def entry_path():
     """Phase 8: the port's ``entry()`` forward on the card (the fused
     kernel). The toy pair was made by one rigid transform of paired points,
     recovered here exactly by a fit; the registration stops unconverged
@@ -1114,13 +1100,13 @@ def entry_path(nn):
         results.append(level_icp(*a, **kw))
         return results[-1]
 
-    nn.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     with mock.patch.object(entry_mod, "icp", kept_icp):
         lin, tr = fwd(*args)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(nn.launch_counts)
+    launches = counts(*NN1_KERNELS)
     if launches["nn1_fused"] == 0:
         raise AssertionError(f"entry() did not run the fused kernel: {launches}")
     res = results[-1]
@@ -1162,12 +1148,12 @@ def icp_card_vs_cpu(nn, icp_mod, k_small):
             nn, "prune_eligible",
             lambda q, k, m, metric="l2", device=None: eligible(q, k, m, metric, device="cuda"),
         ):
-            nn.reset_launch_counts()
+            reset_counts()
             res = icp_mod.icp_multires(
                 p1, p0, dst_normals=n0, src_valid=v1, dst_valid=v0, metric="combined",
                 convergence_tol=1e-4, levels=BENCH_LEVELS,
             )
-        results[dev.type] = (res.transform, dict(nn.launch_counts))
+        results[dev.type] = (res.transform, counts(*NN1_KERNELS))
     (tf_g, l_g), (tf_c, l_c) = results["cuda"], results["cpu"]
     if sum(l_c.values()) or l_g["nn1_compact"] == 0:
         raise AssertionError(f"launches: card {l_g}, CPU {l_c}")
@@ -1231,7 +1217,6 @@ def pool_main_path(depths, gt, k, card):
     host clock's spread and the same sequence with the gather replaced by
     its plain version (no launch, the same bits)."""
     from cilantro_tpu_torch.core import coalesced as cg
-    from cilantro_tpu_torch.registration import gn_step as gs
     from cilantro_tpu_torch.slam.driver import ate_rmse, run_fusion_sequence
 
     streams = {}
@@ -1245,14 +1230,12 @@ def pool_main_path(depths, gt, k, card):
         return run_fusion_sequence(depths, k, map_capacity=POOL_CAPACITY,
                                    cfg=pool_config(), device="cuda")
 
-    cg.reset_launch_counts()
-    gs.reset_launch_counts()
+    reset_counts()
     kept = {}
     with gather_replaced(recording), last_kernel_calls(kept, GN_STEP_WRAPPERS):
         fmap, met = run()
     torch.cuda.synchronize()
-    launches = cg.launch_counts["coalesced_gather"]
-    gn_launches = gs.launch_counts["gn_step"]
+    launches, gn_launches = counts("coalesced_gather", "gn_step").values()
     tracked = FRAMES - 1
     want = 2 * tracked + sum(met.icp_iterations[1:])
     if launches != want:
@@ -1270,11 +1253,11 @@ def pool_main_path(depths, gt, k, card):
     if not (met.num_map_points > 0.9 * H * W and bool(torch.isfinite(live[:, 0:6]).all())):
         raise AssertionError(f"pool map has {met.num_map_points} live points or non-finite values")
     _, met2 = run()
-    cg.reset_launch_counts()
+    reset_counts()
     with gather_replaced(cg.coalesced_gather_plain):
         fmap_plain, met_plain = run()
     torch.cuda.synchronize()
-    if cg.launch_counts["coalesced_gather"] != 0:
+    if counts()["coalesced_gather"] != 0:
         raise AssertionError("the pool run with the plain gather launched the gather kernel")
     same = all(np.array_equal(a, b) for a, b in zip(met.poses, met_plain.poses)) and torch.equal(
         fmap.data.view(torch.int32), fmap_plain.data.view(torch.int32)
@@ -1294,9 +1277,6 @@ def pool_main_path(depths, gt, k, card):
     return launches, streams, met
 
 
-# Every gather stream a phase held bit for bit, by label: ``(src, idx)``
-# for the A/B of the gather's designs (phase 37).
-GATHER_STREAMS: dict = {}
 # The GN step's last call on phases 6 and 10, by label: ``((args, kwargs),
 # launches)`` for its kernels-line entries.
 GN_STEP_CALLS: dict = {}
@@ -1339,7 +1319,6 @@ def gather_kernel_checks(cg, streams):
     :func:`gather_bytes`."""
     out = {}
     for label, (s, i) in gather_cases(streams).items():
-        GATHER_STREAMS[f"phase 11, {label}"] = (s, i)
         kernel = lambda: cg.coalesced_gather(s, i)  # noqa: E731
         plain = lambda: cg.coalesced_gather_plain(s, i)  # noqa: E731
         library = lambda: torch.index_select(s, 0, i.clamp(0, s.shape[0] - 1))  # noqa: E731
@@ -1449,15 +1428,15 @@ def pool_driver_frames(depths, k):
     }
 
 
-def pool_card_vs_cpu(cg, depths, k, card_poses):
+def pool_card_vs_cpu(depths, k, card_poses):
     """Phase 13: the first frames through the same entry point on the CPU
     (the plain versions): no launch, poses as the card's."""
     from cilantro_tpu_torch.slam.driver import run_fusion_sequence
 
-    cg.reset_launch_counts()
+    reset_counts()
     _, met = run_fusion_sequence(depths[:CPU_FRAMES], k, map_capacity=POOL_CAPACITY,
                                  cfg=pool_config(), device="cpu")
-    if cg.launch_counts["coalesced_gather"] != 0:
+    if counts()["coalesced_gather"] != 0:
         raise AssertionError("the CPU pool run launched the gather kernel")
     dt = max(float(np.abs(a[:3, 3] - b[:3, 3]).max()) for a, b in zip(card_poses, met.poses))
     dr = max(rot_angle(a[:3, :3], b[:3, :3]) for a, b in zip(card_poses, met.poses))
@@ -1562,13 +1541,13 @@ def knn_normals_main_path(fk, cloud, ref_normals, ref_valid, card):
     against the depth image's normals (> 0.9)."""
     cloud.with_normals_knn(KNN_K)  # warm-up
     torch.cuda.synchronize()
-    fk.reset_launch_counts()
+    reset_counts()
     with compact_calls(fk) as calls:
         t0 = time.perf_counter()
         out = cloud.with_normals_knn(KNN_K)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(fk.launch_counts)
+    launches = counts(*KNN_KERNELS)
     if launches["knn_compact"] == 0:
         raise AssertionError(f"kNN normals did not run the compact kernel: {launches}")
     both = out.valid & ref_valid
@@ -1613,7 +1592,7 @@ def eigh_yardstick(cloud, card):
     emit(phase="eigh_yardstick", card=card, **record)
 
 
-def knn_normals_registration(fk, nn, icp_mod, src, cloud0, rel):
+def knn_normals_registration(icp_mod, src, cloud0, rel):
     """Phase 15: frame 1 onto frame 0 with ``icp_multires`` and the bench
     levels, the destination normals from ``with_normals_knn`` (computed
     inside the counted run): held to phase 6's bounds."""
@@ -1626,14 +1605,12 @@ def knn_normals_registration(fk, nn, icp_mod, src, cloud0, rel):
             metric="combined", convergence_tol=1e-4, levels=BENCH_LEVELS,
         )
 
-    fk.reset_launch_counts()
-    nn.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = run()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {"knn_compact": fk.launch_counts["knn_compact"], "knn_full": fk.launch_counts["knn_full"],
-                "nn1_compact": nn.launch_counts["nn1_compact"]}
+    launches = counts("knn_compact", "knn_full", "nn1_compact")
     dt, dr = gt_error(res.transform.linear, res.transform.translation, rel)
     emit(phase="knn_normals_registration", pipeline="with_normals_knn + icp_multires",
          launches=launches, ms=ms, ms_repeat=host_ms(run), translation_error_m=dt, rotation_error_rad=dr,
@@ -1644,7 +1621,7 @@ def knn_normals_registration(fk, nn, icp_mod, src, cloud0, rel):
         raise AssertionError(f"registration with kNN normals off by {dt} m / {dr} rad")
 
 
-def knn_full_path(fk, cloud0):
+def knn_full_path(cloud0):
     """Phase 16: ``with_normals_knn(k=12)`` on frame 0 grid-downsampled at
     the smallest bin (2 cm upward in 2.5 mm steps) that leaves fewer than
     8,192 points, so that ``knn`` takes the full kernel."""
@@ -1657,12 +1634,12 @@ def knn_full_path(fk, cloud0):
             break
     down.with_normals_knn(KNN_K)  # warm-up
     torch.cuda.synchronize()
-    fk.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     out = down.with_normals_knn(KNN_K)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(fk.launch_counts)
+    launches = counts(*KNN_KERNELS)
     if launches["knn_full"] == 0 or launches["knn_compact"] != 0:
         raise AssertionError(f"the downsampled kNN normals launched {launches}")
     if not (bool(torch.isfinite(out.normals).all()) and int(out.valid.sum()) > 0.9 * down.capacity):
@@ -1693,7 +1670,7 @@ def bench_neighbour_rows(fk, cloud0, card):
     for label, (run, on_kernel) in rows.items():
         run()  # warm-up
         torch.cuda.synchronize()
-        fk.reset_launch_counts()
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         with compact_calls(fk) as calls:
@@ -1702,7 +1679,7 @@ def bench_neighbour_rows(fk, cloud0, card):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
-        launches = dict(fk.launch_counts)
+        launches = counts(*KNN_KERNELS)
         if on_kernel and launches["knn_compact"] == 0:
             raise AssertionError(f"{label} did not run the compact kernel: {launches}")
         if not on_kernel and sum(launches.values()):
@@ -1801,10 +1778,10 @@ def knn_kernel_checks(fk, nn, first_round, down):
     # The compact wrapper's fallback on 16 query tiles: the full kernel.
     sub_mask, sub_qp = mask[:16], qp[: 16 * tq]
     n = int(sub_mask.sum())
-    before = dict(fk.launch_counts)
+    before = counts(*KNN_KERNELS)
     got = fk._knn_compact(sub_qp, kp, sub_mask, k=KNN_K, budget=n - 1, tile_q=tq, tile_m=tm)
     torch.cuda.synchronize()
-    routed = {name: fk.launch_counts[name] - before[name] for name in before}
+    routed = {name: v - before[name] for name, v in counts(*before).items()}
     if routed != {"knn_full": 1, "knn_compact": 0}:
         raise AssertionError(f"the over-budget compact call launched {routed}")
     assert_same_bits("knn_compact fallback", got, fk.knn_full_rows_plain(sub_qp, kp, KNN_K))
@@ -1833,7 +1810,7 @@ def knn_kernel_checks(fk, nn, first_round, down):
     return out
 
 
-def knn_normals_card_vs_cpu(fk, k_small):
+def knn_normals_card_vs_cpu(k_small):
     """Phase 19: ``with_normals_knn(k=12)`` on a 160×120 frame on the card
     (the pruned kernel path) and on the CPU (the tiled scan, the
     counterpart of what JAX runs on a CPU): |cos| ≥ 0.999 on at least 99%
@@ -1843,9 +1820,9 @@ def knn_normals_card_vs_cpu(fk, k_small):
     depths, _ = synthetic_sequence(1, 120, 160, k_small, seed=0)
     out = {}
     for dev in ("cuda", "cpu"):
-        fk.reset_launch_counts()
+        reset_counts()
         out[dev] = (frame_cloud(depths[0], k_small, torch.device(dev)).with_normals_knn(KNN_K),
-                    dict(fk.launch_counts))
+                    counts(*KNN_KERNELS))
     (g, l_g), (c, l_c) = out["cuda"], out["cpu"]
     if sum(l_c.values()) or l_g["knn_compact"] == 0:
         raise AssertionError(f"launches: card {l_g}, CPU {l_c}")
@@ -1867,10 +1844,10 @@ def probe_kernel_check():
 
     x = torch.from_numpy(np.random.default_rng(3).standard_normal((POOL_CAPACITY // 8, 128))
                          .astype(np.float32)).cuda()
-    probe.reset_launch_counts()
+    reset_counts()
     got = probe.scale2(x)
     torch.cuda.synchronize()
-    launches = probe.launch_counts["scale2"]
+    launches = counts()["scale2"]
     want = probe.scale2_plain(x)
     assert_same_bits("scale2", [got], [want])
     nbytes = 2 * x.numel() * 4
@@ -2005,7 +1982,7 @@ def scanned_phase(name, run_loop, run_graph, loop_poses, gt, max_diff, want_laun
     useful = stats["iterations"]
     n_it = want_launches["project_to_rotation"]
     masked = [n_it - u for u in useful]
-    if stats["launches_per_frame"] != want_launches:
+    if {k_: v for k_, v in stats["launches_per_frame"].items() if v} != want_launches:
         raise AssertionError(f"{name}: launches a replay {stats['launches_per_frame']}, want {want_launches}")
     ate = ate_rmse(poses, gt, device="cuda")
     diff = float(np.abs(np.stack(poses) - np.stack(loop_poses)).max())
@@ -2142,29 +2119,32 @@ KERNEL_WRAPPERS = (
 GN_STEP_WRAPPERS = KERNEL_WRAPPERS[-1:]
 
 
+NN1_KERNELS = ("nn1_fused", "nn1_masked", "nn1_compact")
+KNN_KERNELS = ("knn_full", "knn_compact")
+
+
+def counts(*names) -> dict:
+    """The launches counted (``native.launch_counts``) of the named
+    kernels, or of every kernel."""
+    from cilantro_tpu_torch import native
+
+    return {name: native.launch_counts[name] for name in names or native.launch_counts}
+
+
+def reset_counts():
+    from cilantro_tpu_torch import native
+
+    native.reset_launch_counts()
+
+
 def reset_all_counts():
-    """Zero the launch counters and drop the whole-clip entries' kept
+    """Zero the launch counts and drop the whole-clip entries' kept
     graphs: a kept graph's replays pass through no wrapper, so a count
     from 0 starts with every entry capturing."""
-    from cilantro_tpu_torch.core import coalesced, transforms
-    from cilantro_tpu_torch.neighbors import fused_knn, fused_nn
-    from cilantro_tpu_torch.registration import gn_step
     from cilantro_tpu_torch.slam import scan
 
-    for mod in (coalesced, transforms, fused_knn, fused_nn, gn_step):
-        mod.reset_launch_counts()
+    reset_counts()
     scan.clear()
-
-
-def all_counts() -> dict:
-    from cilantro_tpu_torch.core import coalesced, transforms
-    from cilantro_tpu_torch.neighbors import fused_knn, fused_nn
-    from cilantro_tpu_torch.registration import gn_step
-
-    out = {}
-    for mod in (fused_nn, coalesced, fused_knn, transforms, gn_step):
-        out.update(mod.launch_counts)
-    return out
 
 
 @contextlib.contextmanager
@@ -2393,7 +2373,6 @@ def warp_kernel_checks(kept: dict, launches: dict, path: str, phase="warp_kernel
             extra = dict({k_: v for k_, v in sizes.items() if k_ != "bytes"},
                          bound_64b_ms=sizes["bytes_64b"] / HBM_BYTES_PER_S * 1e3,
                          library_is="torch.index_select of the clamped indices (a yardstick)")
-            GATHER_STREAMS[f"{path}, {sizes['rows']} of {src.shape[0]} rows of {sizes['width']}"] = (src, idx)
         else:
             raise AssertionError(f"{path}: no check for kernel {name}")
         quick = quick_pairs is not None and pairs is not None and pairs >= quick_pairs
@@ -2544,7 +2523,7 @@ def warp_single_path(card):
     with last_kernel_calls(kept_graph):
         graph = build()
     torch.cuda.synchronize()
-    graph_launches = all_counts()
+    graph_launches = counts()
     m = graph.num_nodes
     n = src.shape[0]
     if not (m <= WARP_MAX_NODES and tw.use_direct_solver("auto", m, n, 4, 3, False)
@@ -2561,7 +2540,7 @@ def warp_single_path(card):
     with last_kernel_calls(kept_solve):
         tf, it, conv = solve()
     torch.cuda.synchronize()
-    solve_launches = all_counts()
+    solve_launches = counts()
     iterations = int(it)
     nn_passes = solve_launches["nn1_compact"] + solve_launches["nn1_masked"]
     if solve_launches["project_to_rotation"] != iterations or nn_passes != iterations:
@@ -2618,7 +2597,7 @@ def warp_batched_path(tw, graph, src, dsts, src_t, card):
     reset_all_counts()
     tfb, it, conv = solve()
     torch.cuda.synchronize()
-    launches = all_counts()
+    launches = counts()
     host = best_host_ms(solve)
     w = torch.ones((src.shape[0], len(dsts)), device=dev)
     no_host_sync("warp batched direct GN step, B = 8", lambda: twb.estimate_warp_field_batched(
@@ -2725,7 +2704,7 @@ def warp_other_routes(tw, src, dst, nodes, node_valid, card):
         with last_kernel_calls(kept):
             graph = build(dev)
         torch.cuda.synchronize()
-        graph_launches = all_counts()
+        graph_launches = counts()
         reset_all_counts()
         cg_card, cg_cpu = [], []
         t0 = time.perf_counter()
@@ -2733,7 +2712,7 @@ def warp_other_routes(tw, src, dst, nodes, node_valid, card):
             tf_card, it_card, _ = run(graph, dev)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        solve_launches = all_counts()
+        solve_launches = counts()
         cpu_graph = graph.to("cpu")
         t0 = time.perf_counter()
         with cg_counts_recorded(tw, cg_cpu):
@@ -2806,11 +2785,11 @@ def slam_stage_launches(out: dict):
 
     def counted(name, real):
         def wrapper(*args, **kwargs):
-            before = all_counts()
+            before = counts()
             try:
                 return real(*args, **kwargs)
             finally:
-                after = all_counts()
+                after = counts()
                 out[name] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         return wrapper
 
@@ -2848,7 +2827,7 @@ def slam_path(card):
             fmap, res = run(stats)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches = all_counts()
+        launches = counts()
         timed = {}
         t0 = time.perf_counter()
         run(timed)
@@ -2961,7 +2940,7 @@ def slam_ba_mapping(card):
     with last_kernel_calls(kept):
         p1, l1, r1 = solve(stats=stats)
     torch.cuda.synchronize()
-    launches = all_counts()
+    launches = counts()
     p2, l2, r2 = solve()
     same_bits = all(torch.equal(x, y) for x, y in (
         (p1.linear, p2.linear), (p1.translation, p2.translation), (l1, l2), (r1, r2)))
@@ -3110,7 +3089,7 @@ def batched_path(card):
     data, met = bf.run_batched_fusion_sequences(stacks, k, map_capacity=POOL_CAPACITY, cfg=cfg,
                                                 device="cuda", stats=stats)
     torch.cuda.synchronize()
-    counted = {name: v for name, v in all_counts().items() if v}
+    counted = {name: v for name, v in counts().items() if v}
     per_step = stats["launches_per_step"]
     if any(per_step.get(name, 0) == 0 for name in ("coalesced_gather", "project_to_rotation")):
         raise AssertionError(f"batched path: a kernel of the path never launched: {per_step}")
@@ -3131,12 +3110,15 @@ def batched_path(card):
     if not max(diffs) <= 1e-4:
         raise AssertionError(f"batched path: streams {diffs} from their single-stream runs, bound 1e-4")
 
-    # Launches a replay: B = 1 against B = 8 and the single-stream replay
-    # (whose GN step takes the one-problem kernels, which a batch does not).
+    # Launches a replay: B = 1 against B = 8 and, over the batched path's
+    # kernels, the single-stream replay (whose GN step takes the one-problem
+    # kernels, which a batch does not).
     one = {}
     _, met_one = bf.run_batched_fusion_sequences(stacks[:1], k, map_capacity=POOL_CAPACITY, cfg=cfg,
                                                  device="cuda", stats=one)
-    if not (per_step == one["launches_per_step"] == {name: single_launches[name] for name in per_step}):
+    batched = ("coalesced_gather", "project_to_rotation")
+    if not (per_step == one["launches_per_step"]
+            and all(per_step[name] == single_launches[name] for name in batched)):
         raise AssertionError(f"launches a replay: B = 8 {per_step}, B = 1 {one['launches_per_step']}, "
                              f"single stream {single_launches}")
 
@@ -3318,7 +3300,7 @@ def counted(fn, kept, label):
         out = fn()
         torch.cuda.synchronize()
     kept.update({(label,) + key: call for key, call in calls.items()})
-    return out, {name: v for name, v in all_counts().items() if v}
+    return out, {name: v for name, v in counts().items() if v}
 
 
 def estimation_row(card):
@@ -3697,7 +3679,7 @@ def ply_path(depths, k, rel, card):
         got_n, got = register_pair(icp_mod, loaded[1], loaded[0])
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {name: v for name, v in all_counts().items() if v}
+    launches = {name: v for name, v in counts().items() if v}
     same = (torch.equal(got_n.normals.view(torch.int32), want_n.normals.view(torch.int32))
             and torch.equal(got_n.valid, want_n.valid)
             and torch.equal(got.transform.linear.view(torch.int32), want.transform.linear.view(torch.int32))
@@ -3789,7 +3771,7 @@ def viz_path(depths, k, streams, card):
             fmap, met = run_fusion_sequence(depths[:frames], k, map_capacity=POOL_CAPACITY, cfg=pool_config(),
                                             on_frame=hook, device="cuda")
             torch.cuda.synchronize()
-    launches = {name: v for name, v in all_counts().items() if v}
+    launches = {name: v for name, v in counts().items() if v}
     if [s["frame"] for s in snaps] != [2, 4] or not all(s["same"] for s in snaps):
         raise AssertionError(f"live snapshots {snaps}")
     if not launches.get("coalesced_gather"):
@@ -3862,7 +3844,7 @@ def counted_run(fn):
     with last_kernel_calls(kept, PARALLEL_WRAPPERS, key=by_site):
         out = fn()
     torch.cuda.synchronize()
-    return out, {k_: v for k_, v in all_counts().items() if v}, kept
+    return out, {k_: v for k_, v in counts().items() if v}, kept
 
 
 def hold_path(label, launches, kept, held: dict, sharded_launches: dict):
@@ -4477,11 +4459,10 @@ def examples_paths(card):
             if name == "slam":
                 argv += ["--cache", out_dir]
             reset_all_counts()
-            splat.reset_launch_counts()
             kept, splat_kept = {}, {}
             with last_kernel_calls(kept, PARALLEL_WRAPPERS), path_recorded(sf, splat_kept):
                 out, seconds = run_example(name, argv)
-            launches = {k_: v for k_, v in {**all_counts(), **splat.launch_counts}.items() if v}
+            launches = {k_: v for k_, v in counts().items() if v}
             figures = example_truth(name, out, out_dir)
             cpu_same = None
             if name in EXAMPLES_AS_ON_CPU or name == "mds_and_pca":
@@ -4736,17 +4717,15 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
 
-    # 1. Build the kernels and the gather's design variants (phase 37), every
-    # nvcc at once, and wait for all of them before anything is timed.
-    from cilantro_tpu_torch.tools import gather_variants, knn_full_ab
+    # 1. Build the kernels, every nvcc at once, and wait for all of them
+    # before anything is timed.
+    from cilantro_tpu_torch.tools import knn_full_ab
 
     t0 = time.perf_counter()
-    gather_jobs = gather_variants.start_build(native)
     logs = native.build()
-    designs = gather_variants.finish_build(gather_jobs)
     build_s = time.perf_counter() - t0
-    emit(phase="build", seconds=build_s, sources=list(native.SOURCES), compiled=sorted(logs),
-         gather_designs=[name for name, _ in designs], card=card, torch=torch.__version__, cuda=torch.version.cuda)
+    emit(phase="build", seconds=build_s, sources=list(native.SOURCES), compiled=sorted(logs), card=card,
+         torch=torch.__version__, cuda=torch.version.cuda)
     for name, log in logs.items():
         emit(phase="build_log", source=name,
              ptxas=[ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln])
@@ -4761,13 +4740,12 @@ def main() -> int:
     depths, gt = synthetic_sequence(FRAMES, H, W, k, seed=0)
     emit(phase="input", frames=FRAMES, height=H, width=W, render_s=time.perf_counter() - t0)
 
-    splat.reset_launch_counts()
-    tfm.reset_launch_counts()
+    reset_counts()
     frame_inputs = {}
     with path_recorded(sf, frame_inputs), rotation_recorded(frame_inputs):
         smap, poses, spf, per_frame = sf.run_splat_sequence(depths, k, cfg=cfg, device="cuda")
-    launches = dict(splat.launch_counts)
-    rotation_launches = tfm.launch_counts["project_to_rotation"]
+    launches = counts(*splat.KERNELS)
+    rotation_launches = counts()["project_to_rotation"]
     if rotation_launches != launches["window_read_codes"]:
         raise AssertionError(f"{rotation_launches} rotation launches, want one a GN iteration")
     ate = ate_rmse(poses, gt, device="cuda")
@@ -4836,11 +4814,11 @@ def main() -> int:
     nn1 = nn1_kernel_checks(fused_nn, pair, coarse, toy)
 
     # 6-8. The ICP paths: main path, wide gate, entry().
-    nn1["nn1_compact"]["launches"] = icp_main_path(fused_nn, icp_mod, pair, rel, card)["nn1_compact"]
+    nn1["nn1_compact"]["launches"] = icp_main_path(icp_mod, pair, rel, card)["nn1_compact"]
     nn1["nn1_compact"]["path"] = "icp_multires, 640x480 pair, bench levels"
-    nn1["nn1_masked"]["launches"] = wide_gate_path(fused_nn, icp_mod, pair, rel)["nn1_masked"]
+    nn1["nn1_masked"]["launches"] = wide_gate_path(icp_mod, pair, rel)["nn1_masked"]
     nn1["nn1_masked"]["path"] = "icp, 640x480 pair, entry() settings (0.5 m gate)"
-    nn1["nn1_fused"]["launches"] = entry_path(fused_nn)["nn1_fused"]
+    nn1["nn1_fused"]["launches"] = entry_path()["nn1_fused"]
     nn1["nn1_fused"]["path"] = "entry(), 4096-point pair"
 
     # 9. ICP card vs CPU.
@@ -4866,7 +4844,7 @@ def main() -> int:
         emit(phase="pool_driver_frames", card=card, **pool_driver_frames(depths, k))
     except Exception as e:  # informational phase: report and go on
         emit(phase="pool_driver_frames", error=f"{type(e).__name__}: {e}")
-    pool_card_vs_cpu(cg, depths, k, pool_met.poses)
+    pool_card_vs_cpu(depths, k, pool_met.poses)
 
     # 13b. The GN step's kernels on their last calls on phases 6 and 10.
     gn_entries = []
@@ -4887,15 +4865,15 @@ def main() -> int:
         eigh_yardstick(cloud0, card)
     except Exception as e:  # informational phase: report and go on
         emit(phase="eigh_yardstick", error=f"{type(e).__name__}: {e}")
-    knn_normals_registration(fused_knn, fused_nn, icp_mod, pair[0], cloud0, rel)
-    down, full_launches = knn_full_path(fused_knn, cloud0)
+    knn_normals_registration(icp_mod, pair[0], cloud0, rel)
+    down, full_launches = knn_full_path(cloud0)
     bench_neighbour_rows(fused_knn, cloud0, card)
     knn = knn_kernel_checks(fused_knn, fused_nn, first_round, down)
     knn["knn_compact"].update(launches=knn_launches["knn_compact"],
                               path="with_normals_knn(k=12), 640x480 frame")
     knn["knn_full"].update(launches=full_launches["knn_full"],
                            path="with_normals_knn(k=12), frame grid-downsampled below 8,192 points")
-    knn_normals_card_vs_cpu(fused_knn, CameraIntrinsics.make(131.25, 131.25, 79.5, 59.5))
+    knn_normals_card_vs_cpu(CameraIntrinsics.make(131.25, 131.25, 79.5, 59.5))
 
     # 20. The wide-row probe's kernel.
     probe = probe_kernel_check()
@@ -4963,16 +4941,6 @@ def main() -> int:
     par_paths += two_rank_paths(depths, k, ref, card)
     print(json.dumps({"parallel_paths": par_paths, "held_bit_exact": par_held}), flush=True)
 
-    # 37. The gather's designs in one A/B on every stream held above.
-    icp_b8 = next(label for label in GATHER_STREAMS if "batched icp_projective" in label)
-    strided = gather_variants.stride_cases(GATHER_STREAMS[icp_b8][0], GATHER_STREAMS[icp_b8][1].shape[0])
-    ab = gather_variants.ab(designs, {**GATHER_STREAMS, **strided}, card, cold=(*strided, icp_b8))
-    built, first = gather_variants.BUILT, gather_variants.FIRST
-    print(json.dumps({"gather_designs": {label: {"as_built_ms": t[built], "first_design_ms": t[first],
-                                                 "ratio": t[built] / t[first]} for label, t in ab.items()}}),
-          flush=True)
-    gather_entry["first_design_ms"] = ab["phase 11, integrate_rows"][first]
-
     # 38-39. The examples through their main(), then dryrun_multichip at
     # world size 1 over NCCL and on two gloo ranks.
     ex_paths, ex_held = examples_paths(card)
@@ -4995,7 +4963,7 @@ def main() -> int:
     knn["knn_full"]["previous_design"] = "a thread per query (the earlier design), phase 40's A/B on phase 16's call"
 
     # The kernels line, the card, the result.
-    kernels += [nn1[name] for name in ("nn1_fused", "nn1_masked", "nn1_compact")]
+    kernels += [nn1[name] for name in NN1_KERNELS]
     kernels.append(gather_entry)
     kernels += [knn["knn_full"], knn["knn_compact"], probe, rotation] + gn_entries
     for entry in kernels:

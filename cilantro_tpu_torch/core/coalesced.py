@@ -17,36 +17,16 @@ its launcher refuses more, and the wrapper raises first (for a ``src`` of
 or dtype take the plain version. The TPU kernel's coalescing plan, window
 fetch and one-hot realignment answered a per-row DMA cost the card does
 not have (see the kernel source) and are not ported. Every launch adds one
-to ``launch_counts["coalesced_gather"]``.
+to ``native.launch_counts["coalesced_gather"]``.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
-from typing import Dict
 
 import torch
 
 from .. import native
 
 KERNEL_WIDTHS = (8, 16)
-
-launch_counts: Dict[str, int] = {"coalesced_gather": 0}
-
-
-def reset_launch_counts() -> None:
-    launch_counts["coalesced_gather"] = 0
-
-
-@functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = native.load("gather_kernels")
-    fn = lib.coalesced_gather_launch
-    fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-    fn.restype = ctypes.c_int
-    return lib
 
 
 def coalesced_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -78,11 +58,5 @@ def coalesced_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, w), dtype=torch.float32, device=src.device)
     if n == 0:
         return out
-    err = _kernels().coalesced_gather_launch(
-        src.data_ptr(), idx.data_ptr(), out.data_ptr(), c, w, n,
-        torch.cuda.current_stream().cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launch_counts[name] += 1
+    native.launch("coalesced_gather_launch", src.data_ptr(), idx.data_ptr(), out.data_ptr(), c, w, n)
     return out

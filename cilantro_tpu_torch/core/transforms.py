@@ -8,10 +8,7 @@ agree to float32 roundoff.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
-from typing import Dict
 
 import torch
 
@@ -133,21 +130,6 @@ def per_stream(tf: Transform) -> Transform:
 
 _JACOBI_SWEEPS = 4
 
-launch_counts: Dict[str, int] = {"project_to_rotation": 0}
-
-
-def reset_launch_counts() -> None:
-    launch_counts["project_to_rotation"] = 0
-
-
-@functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = native.load("rotation_kernels")
-    fn = lib.project_to_rotation_launch
-    fn.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
-    fn.restype = ctypes.c_int
-    return lib
-
 
 def _dot3(x, y):
     return (x[0] * y[0] + x[1] * y[1]) + x[2] * y[2]
@@ -245,12 +227,7 @@ def project_to_rotation(linear: torch.Tensor) -> torch.Tensor:
         return out
     if n >= 2**31 // 9:
         raise ValueError(f"{name}: {n} matrices, the kernel indexes with 32 bits")
-    err = _kernels().project_to_rotation_launch(
-        src.data_ptr(), out.data_ptr(), n, torch.cuda.current_stream().cuda_stream
-    )
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launch_counts[name] += 1
+    native.launch("project_to_rotation_launch", src.data_ptr(), out.data_ptr(), n)
     return out
 
 

@@ -13,8 +13,8 @@
 // (the projective ICP's targets of stride-2 points step by two 32-byte
 // rows), the memory system moves whole 64-byte segments, so every such row
 // costs twice its bytes: that stream's least time is its 64-byte
-// segments' bytes, not its rows' (chip_smoke.py reports both bounds, and
-// tools/gather_variants.py times rows at a stride of 1, 2 and 4).
+// segments' bytes, not its rows' (chip_smoke.py reports both bounds;
+// rows at a stride of 1, 2 and 4 were timed too: PERF.md §6, row 4).
 //
 // Design. A warp copies a tile of 32 rows:
 //   - each lane loads the index of one row (one coalesced 128-byte load)
@@ -35,8 +35,8 @@
 // When a warp's indices run consecutively (fusion's integrate and update
 // streams are 96-100% runs, because the pool is appended in image order),
 // its loads fall on neighbouring source rows and merge into full sectors.
-// The GATHER_* macros let tools/gather_variants.py build variants of these
-// choices with -D; the defaults are the built design.
+// Variants of these choices were timed against this design (PERF.md §6,
+// row 4).
 //
 // Why the TPU design is not carried over: the TPU paid one DMA descriptor
 // per gathered row, so its kernel planned runs of consecutive indices,
@@ -44,7 +44,7 @@
 // a one-hot matmul. On Hopper a gathered row costs no descriptor, a warp's
 // loads of a run coalesce by themselves, and 1-D bulk copies (TMA) of the
 // runs through shared memory were slower than plain loads on every stream
-// (tools/gather_alternatives.cu; PERF.md). No plan, no window, no
+// (PERF.md §6, row 4). No plan, no window, no
 // realignment.
 //
 // The launcher enqueues on the caller's stream, does not synchronise,
@@ -54,29 +54,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef GATHER_THREADS
-#define GATHER_THREADS 256
-#endif
-#ifndef GATHER_MAX_ROUNDS
-#define GATHER_MAX_ROUNDS 4
-#endif
-#ifndef GATHER_UNCACHED_MAX_WIDTH
-#define GATHER_UNCACHED_MAX_WIDTH 8
-#endif
-#ifndef GATHER_RUNS_THROUGH_L1
-#define GATHER_RUNS_THROUGH_L1 1
-#endif
-#ifndef GATHER_STREAMING_STORES
-#define GATHER_STREAMING_STORES 1
-#endif
-
 namespace {
 
-constexpr int kThreads = GATHER_THREADS;
-constexpr int kMaxRounds = GATHER_MAX_ROUNDS;  // tiles a warp walks at most on the resident grid
-constexpr int kUncachedMaxWidth = GATHER_UNCACHED_MAX_WIDTH;  // rows this wide or narrower outside a run skip L1
-constexpr bool kRunsThroughL1 = GATHER_RUNS_THROUGH_L1;
-constexpr bool kStreamingStores = GATHER_STREAMING_STORES;
+constexpr int kThreads = 256;
+constexpr int kMaxRounds = 4;  // tiles a warp walks at most on the resident grid
+constexpr int kUncachedMaxWidth = 8;  // rows this wide or narrower outside a run skip L1
+constexpr bool kRunsThroughL1 = true;
+constexpr bool kStreamingStores = true;
 constexpr unsigned kAll = 0xffffffffu;
 
 // A read-only load of source that allocates an L1 line, or none.

@@ -650,21 +650,14 @@ cudaError_t launch_compact(const void* qp, const void* kp, const void* kt_live,
 // Design 5: a warp per query (see the note at the top).
 // ---------------------------------------------------------------------------
 
-#ifndef KNN_WARP_KEYS
-#define KNN_WARP_KEYS 1  // keys a lane takes a step (distances in flight)
-#endif
-#ifndef KNN_WARP_QUEUE_MIN
-#define KNN_WARP_QUEUE_MIN 4  // queue pairs a lane: P / 32 clamped to these
-#endif
-#ifndef KNN_WARP_QUEUE_MAX
-#define KNN_WARP_QUEUE_MAX 8
-#endif
-constexpr int kWarpKeys = KNN_WARP_KEYS;
+constexpr int kWarpKeys = 1;  // keys a lane takes a step (distances in flight)
+constexpr int kWarpQueueMin = 4;  // queue pairs a lane: P / 32 clamped to these
+constexpr int kWarpQueueMax = 8;
 constexpr int kWarpStage = 1024;  // keys staged in shared memory at a time
 constexpr int kMaxWarps = 8;      // warps (queries) a block at most
 constexpr int kNoPos = 0x7fffffff;
 static_assert(kWarpStage % (32 * kWarpKeys) == 0, "whole steps a stage");
-static_assert(KNN_WARP_QUEUE_MIN >= kWarpKeys, "a step fits an empty queue");
+static_assert(kWarpQueueMin >= kWarpKeys, "a step fits an empty queue");
 
 // Afterwards (ad, ap) holds the smaller pair if up, else the larger.
 __device__ __forceinline__ void pair_cas(float& ad, int& ap, float& bd, int& bp,
@@ -930,9 +923,9 @@ cudaError_t launch_full_warp(const void* qp, const void* kp, int n_queries,
                              int splits, int split_len, void* part_d,
                              void* part_i, void* tickets, void* out_d,
                              void* out_i, cudaStream_t stream) {
-  constexpr int T = P < KNN_WARP_QUEUE_MIN   ? KNN_WARP_QUEUE_MIN
-                    : P > KNN_WARP_QUEUE_MAX ? KNN_WARP_QUEUE_MAX
-                                             : P;
+  constexpr int T = P < kWarpQueueMin   ? kWarpQueueMin
+                    : P > kWarpQueueMax ? kWarpQueueMax
+                                        : P;
   if (warps < 1 || warps > kMaxWarps) return cudaErrorInvalidValue;
   const dim3 grid((n_queries + warps - 1) / warps, splits);
   knn_full_warp_kernel<P, T><<<grid, 32 * warps, 0, stream>>>(

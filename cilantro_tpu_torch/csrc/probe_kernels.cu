@@ -19,13 +19,13 @@
 //   is touched once; stores keep the default policy. Timed back to back,
 //   each call finds the L2 as the previous one left it, and there either
 //   hint alone beats both together or neither; the gain over torch.mul
-//   is of that kind (tools/select_rows_variants.py also times both with
-//   the L2 cleared before each call; PERF.md);
+//   is of that kind (both were also timed with the L2 cleared before each
+//   call; PERF.md §6, row 10);
 // - one block for each kThreads * kUnroll float4 words, with no
 //   grid-stride loop; the last block checks each word against the end.
-// tools/select_rows_variants.py times this design beside the previous one
-// (one load in flight a thread, a grid-stride loop), a 1-D bulk-copy (TMA)
-// design and source variants of the constants and cache hints below.
+// This design was timed beside the previous one (one load in flight a
+// thread, a grid-stride loop), a 1-D bulk-copy (TMA) design and variants of
+// the constants and cache hints below (PERF.md §6, row 10).
 //
 // The launcher enqueues on the caller's stream, does not synchronise, and
 // returns cudaGetLastError() so that a refused launch is reported.

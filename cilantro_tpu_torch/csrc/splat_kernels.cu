@@ -63,7 +63,7 @@
 // a scan makes. What bounds it: the bytes of the halo copy and the
 // sweeps' issue, a few instructions and one shared atomic a candidate;
 // 512 threads a block keep more of both in flight than 256 or 128
-// (tools/argmin2_variants.py, PERF.md §6).
+// (PERF.md §6, row 2).
 //
 // Layout: every image is row-major and padded by R on each side of its
 // last two dims, exactly as the callers pass it (the JAX wrappers' extra
@@ -292,9 +292,9 @@ __global__ void __launch_bounds__(kElectThreads) splat_argmin2_kernel(
 // - the output is written with streaming stores (st.global.cs), so that
 //   it does not evict from L2 the source rows the winner and runner-up
 //   images both read.
-// tools/select_rows_variants.py times this design beside the previous one
-// (one thread a pixel, four divisions, scalar stores), a shared-memory
-// halo, and source variants of the constants below.
+// This design was timed beside the previous one (one thread a pixel, four
+// divisions, scalar stores), a shared-memory halo, and variants of the
+// constants below (PERF.md §6, row 3).
 constexpr int kSelectThreads = 256;
 constexpr int kSelectPix = 2;  // pixels a thread, horizontally adjacent
 constexpr int kSelectThreadsX = 32 / kSelectPix;  // a warp covers 32 columns

@@ -9,6 +9,13 @@ the first CUDA call of a wrapper builds what it needs, and :func:`build`
 builds several sources at once, one ``nvcc`` process each, all started
 together. A failed build raises; nothing falls back to the plain versions.
 
+Every launcher is declared once, in ``_KERNEL_SIGNATURES``, with its
+library, its ``ctypes`` signature and the kernel it counts under, and every
+wrapper launches through :func:`launch`, which enqueues on the current
+stream, raises if the launcher returns an error and adds one to
+``launch_counts[<kernel>]`` (every kernel's count, 0 from import;
+:func:`reset_launch_counts` zeroes them).
+
 The host code (``csrc/host/*.cpp``, copies of the JAX package's
 ``native/src``) is built the same way with ``g++ -O3 -march=native`` into
 ``_build/lib<name>-<hash>.so`` (the hash covers the source, the headers
@@ -44,6 +51,41 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Each CUDA launcher's ctypes signature, the stream last, and the kernel
+# its launches count under: function -> (library, argtypes, kernel).
+_KERNEL_SIGNATURES = {
+    "window_read_codes_launch": (
+        "splat_kernels", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P), "window_read_codes"),
+    "splat_argmin2_launch": (
+        "splat_kernels", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P), "splat_argmin2"),
+    "flow_select_rows_launch": (
+        "splat_kernels", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P), "flow_select_rows"),
+    "nn1_fused_launch": ("nn1_kernels", (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P), "nn1_fused"),
+    "nn1_masked_launch": ("nn1_kernels", (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P), "nn1_masked"),
+    "nn1_compact_launch": (
+        "nn1_kernels", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P), "nn1_compact"),
+    "knn_full_launch": (
+        "knn_kernels", (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P), "knn_full"),
+    "knn_full_warp_launch": (
+        "knn_kernels", (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P), "knn_full"),
+    "knn_compact_launch": (
+        "knn_kernels",
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P), "knn_compact"),
+    "coalesced_gather_launch": ("gather_kernels", (_P, _P, _P, _I, _I, _I, _P), "coalesced_gather"),
+    "project_to_rotation_launch": ("rotation_kernels", (_P, _P, _I, _P), "project_to_rotation"),
+    "gn_step_launch": (
+        "gn_kernels", (_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P), "gn_step"),
+    "scale2_launch": ("probe_kernels", (_P, _P, ctypes.c_long, _P), "scale2"),
+}
+# Launches of each kernel since import or the last reset_launch_counts().
+launch_counts: Dict[str, int] = dict.fromkeys((kernel for _, _, kernel in _KERNEL_SIGNATURES.values()), 0)
+
+
+def reset_launch_counts() -> None:
+    for kernel in launch_counts:
+        launch_counts[kernel] = 0
 
 
 def _nvcc() -> str:
@@ -93,11 +135,32 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
+def declare(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """``lib`` with the signatures of ``csrc/<name>.cu``'s launchers
+    declared (a library built from that source or from a variant of it)."""
+    for fn, (lib_name, argtypes, _) in _KERNEL_SIGNATURES.items():
+        if lib_name == name:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, building it if needed."""
+    """The built library of ``csrc/<name>.cu`` with its launchers'
+    signatures declared, building it if needed."""
     build((name,))
-    return ctypes.CDLL(str(library_path(name)))
+    return declare(ctypes.CDLL(str(library_path(name))), name)
+
+
+def launch(fn: str, *args) -> None:
+    """Call launcher ``fn`` with ``args`` and the current stream; raises if
+    it returns an error, else counts one launch of its kernel."""
+    lib, _, kernel = _KERNEL_SIGNATURES[fn]
+    err = getattr(load(lib), fn)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+    launch_counts[kernel] += 1
 
 
 def on_cpu(name: str, *tensors: torch.Tensor) -> bool:

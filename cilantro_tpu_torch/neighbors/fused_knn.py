@@ -8,7 +8,7 @@ Squared distances are the 8-term dot products of augmented rows that
 built for ``sm_90a`` at first CUDA use) carry the search, each with a plain
 PyTorch version beside it; a wrapper runs the plain version only when its
 tensors lie on the CPU, and for CUDA tensors launches the kernel or raises.
-Every launch adds one to ``launch_counts[<name>]``.
+Every launch adds one to ``native.launch_counts[<name>]``.
 
 - :func:`knn_full_rows` ("knn_full") replaces ``_knn_kernel`` /
   ``_knn_pallas_full`` (``pallas_nn.py:701,854``): every query against
@@ -43,9 +43,8 @@ partial lists in the same launch. See the source for the designs.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,17 +69,7 @@ from .fused_nn import (
 )
 from .gridhash import _aabb_dist2
 
-launch_counts: Dict[str, int] = {
-    "knn_full": 0,
-    "knn_compact": 0,
-}
-
 _BIG = 3e38
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -153,36 +142,8 @@ def knn_compact_rows_plain(qp, kp, qt, kt, flags, k, tile_q, tile_m, exclude_dia
 
 
 # ---------------------------------------------------------------------------
-# Kernel library and the two kernel wrappers.
+# The two kernel wrappers.
 # ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
-    "knn_full_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "knn_full_warp_launch": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "knn_compact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-}
-
-
-@functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = native.load("knn_kernels")
-    for fn, argtypes in _SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
-
-
-def _launch(name: str, *args, fn: Optional[str] = None, lib: Optional[ctypes.CDLL] = None) -> None:
-    """Launch kernel ``name`` through ``fn`` (default ``<name>_launch``) of
-    ``lib`` (default the built source)."""
-    err = getattr(lib or _kernels(), fn or f"{name}_launch")(
-        *args, torch.cuda.current_stream().cuda_stream
-    )
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launch_counts[name] += 1
 
 
 def _check_k(name, qp, k) -> None:
@@ -362,11 +323,10 @@ def knn_full_rows(
     return _full_launch(qp, kp, k, exclude_diag, plan)
 
 
-def _full_launch(qp, kp, k: int, exclude_diag: bool, plan: dict, lib: Optional[ctypes.CDLL] = None):
+def _full_launch(qp, kp, k: int, exclude_diag: bool, plan: dict):
     """The full kernel's launch in ``plan``'s design and grid (outputs and
     scratch allocated here): the thread design writes whole blocks of 128
-    rows, so its outputs are views of the first ``Qp`` rows. ``lib``: a
-    library built from a variant of the source (``tools/knn_full_ab.py``)."""
+    rows, so its outputs are views of the first ``Qp`` rows."""
     n, splits, length = qp.shape[0], plan["splits"], plan["keys_per_split"]
     rows = n if plan["design"] == "warp" else _ceil_div(n, _FULL_BLOCK) * _FULL_BLOCK
     if rows * k >= 2**31:
@@ -379,17 +339,16 @@ def _full_launch(qp, kp, k: int, exclude_diag: bool, plan: dict, lib: Optional[c
     part_i = torch.empty(part, dtype=torch.int32, device=qp.device)
     tickets = torch.zeros(_ceil_div(n, plan["queries_per_block"]), dtype=torch.int32, device=qp.device)
     if plan["design"] == "warp":
-        _launch(
-            "knn_full", qp.data_ptr(), kp.data_ptr(), n, kp.shape[0], k, int(exclude_diag),
+        native.launch(
+            "knn_full_warp_launch", qp.data_ptr(), kp.data_ptr(), n, kp.shape[0], k, int(exclude_diag),
             plan["queries_per_block"], splits,
             length, part_d.data_ptr(), part_i.data_ptr(), tickets.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-            fn="knn_full_warp_launch", lib=lib,
         )
     else:
-        _launch(
-            "knn_full", qp.data_ptr(), kp.data_ptr(), n, kp.shape[0], k, _slot_bucket(k), int(exclude_diag),
-            splits, length, part_d.data_ptr(), part_i.data_ptr(), tickets.data_ptr(), dist.data_ptr(),
-            idx.data_ptr(), lib=lib,
+        native.launch(
+            "knn_full_launch", qp.data_ptr(), kp.data_ptr(), n, kp.shape[0], k, _slot_bucket(k),
+            int(exclude_diag), splits, length, part_d.data_ptr(), part_i.data_ptr(), tickets.data_ptr(),
+            dist.data_ptr(), idx.data_ptr(),
         )
     return dist[:n], idx[:n]
 
@@ -438,8 +397,8 @@ def _compact_launch(qp, kp, work, *, k: int, tile_q: int, tile_m: int, exclude_d
     part_d = torch.empty(part, dtype=torch.float32, device=qp.device)
     part_i = torch.empty(part, dtype=torch.int32, device=qp.device)
     tickets = torch.zeros(qp.shape[0] // rows, dtype=torch.int32, device=qp.device)
-    _launch(
-        "knn_compact", qp.data_ptr(), kp.data_ptr(), kt_live.data_ptr(), starts.data_ptr(),
+    native.launch(
+        "knn_compact_launch", qp.data_ptr(), kp.data_ptr(), kt_live.data_ptr(), starts.data_ptr(),
         items.data_ptr(), items.shape[0], rows, qp.shape[0], kp.shape[0], tile_q, tile_m, k,
         _slot_bucket(k), int(exclude_diag), part_d.data_ptr(), part_i.data_ptr(),
         tickets.data_ptr(), dist.data_ptr(), idx.data_ptr(),

@@ -12,7 +12,7 @@ Three CUDA C++ kernels (``csrc/nn1_kernels.cu``, built for ``sm_90a`` at
 first CUDA use) carry the search, each with a plain PyTorch version beside
 it; a wrapper runs the plain version only when its tensors lie on the CPU,
 and for CUDA tensors launches the kernel or raises. Every launch adds one to
-``launch_counts[<name>]``.
+``native.launch_counts[<name>]``.
 
 - :func:`fused_rows` ("nn1_fused") replaces ``_nn1_kernel`` / ``nn1_pallas``
   (``pallas_nn.py:92,151``): every query against every key.
@@ -53,7 +53,6 @@ in ``host_reads["survivor_count"]``) and leaves an
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -64,11 +63,6 @@ from ..utils.profiling import count
 from .bruteforce import INVALID_DIST
 from .gridhash import _aabb_dist2, morton_code
 
-launch_counts: Dict[str, int] = {
-    "nn1_fused": 0,
-    "nn1_masked": 0,
-    "nn1_compact": 0,
-}
 # Reads of a tensor back to the host, by what was read.
 host_reads: Dict[str, int] = {"survivor_count": 0}
 # The launch parameters of each kernel's last launch: rows a thread, key
@@ -80,11 +74,6 @@ _BLOCK_Q = 128  # threads per CUDA block: query tiles are multiples of it
 _ROWS = 4  # query rows a thread where the rows allow it
 _PLAIN_BLOCK = 1 << 26  # (query, key) pairs per plain-version block (256 MB)
 _INT32_MAX = 2**31 - 1
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -217,34 +206,8 @@ def compact_rows_plain(qp, kp, qt, kt, flags, tile_q, tile_m):
 
 
 # ---------------------------------------------------------------------------
-# Kernel library and argument checks.
+# Argument checks.
 # ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
-    "nn1_fused_launch": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
-    "nn1_masked_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    "nn1_compact_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-}
-
-
-@functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = native.load("nn1_kernels")
-    for fn, argtypes in _SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
-
-
-def _launch(name: str, *args) -> None:
-    err = getattr(_kernels(), f"{name}_launch")(
-        *args, torch.cuda.current_stream().cuda_stream
-    )
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launch_counts[name] += 1
 
 
 def _check_rows(name, qp, kp, tile_q, tile_m) -> Tuple[int, int]:
@@ -327,8 +290,8 @@ def fused_rows(
     _check_cuda(name, qp.shape[0], ("qp", qp), ("kp", kp))
     dist, idx, best = _split_outputs(qp.shape[0], qp.device, 0)
     design = (ctypes.c_int * 3)()
-    _launch(
-        name, qp.data_ptr(), kp.data_ptr(), qp.shape[0], kp.shape[0], terms,
+    native.launch(
+        "nn1_fused_launch", qp.data_ptr(), kp.data_ptr(), qp.shape[0], kp.shape[0], terms,
         best.data_ptr(), dist.data_ptr(), idx.data_ptr(), ctypes.addressof(design),
     )
     _record_design(name, design)
@@ -361,8 +324,8 @@ def masked_rows(
     _check_cuda(name, tile_q, ("qp", qp), ("kp", kp), ("tile_mask", tile_mask))
     dist, idx, best = _split_outputs(qp.shape[0], qp.device, 0)
     design = (ctypes.c_int * 3)()
-    _launch(
-        name, qp.data_ptr(), kp.data_ptr(), tile_mask.data_ptr(), qp.shape[0],
+    native.launch(
+        "nn1_masked_launch", qp.data_ptr(), kp.data_ptr(), tile_mask.data_ptr(), qp.shape[0],
         n_mt, tile_q, tile_m, terms, best.data_ptr(), dist.data_ptr(), idx.data_ptr(),
         ctypes.addressof(design),
     )
@@ -402,8 +365,8 @@ def compact_rows(
         raise ValueError(f"{name}: {budget} entries of {tile_q} rows are 2^31 work items or more")
     dist, idx, best = _split_outputs(qp.shape[0], qp.device, 1)
     design = (ctypes.c_int * 3)()
-    _launch(
-        name, qp.data_ptr(), kp.data_ptr(), qt.data_ptr(), kt.data_ptr(),
+    native.launch(
+        "nn1_compact_launch", qp.data_ptr(), kp.data_ptr(), qt.data_ptr(), kt.data_ptr(),
         flags.data_ptr(), budget, qp.shape[0], tile_q, tile_m, terms,
         best.data_ptr(), dist.data_ptr(), idx.data_ptr(), ctypes.addressof(design),
     )

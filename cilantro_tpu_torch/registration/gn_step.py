@@ -23,15 +23,14 @@ version repeats each operation in that order, so the two agree bit for bit
 on the card; it is the wrapper's route for CPU tensors. :func:`gn_step_kernel`
 is one launcher call, the kernels' side of that comparison.
 
-Launch counts: ``launch_counts["gn_step"]`` counts the launcher's calls
-(the means pass with the first, the sums pass and the solve with each).
+Launch counts: ``native.launch_counts["gn_step"]`` counts the launcher's
+calls (the means pass with the first, the sums pass and the solve with
+each).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,12 +48,6 @@ WORKSPACE = STATE_AT + STATE  # float64: the partials of both passes, the step's
 OUT = 13  # float32: R (9), t (3), the last step's norm
 _EPS = 1e-12  # the least weight sum the means divide by; JᵀJ's damping
 
-launch_counts: Dict[str, int] = {"gn_step": 0}
-
-
-def reset_launch_counts() -> None:
-    launch_counts["gn_step"] = 0
-
 
 def blocks_for(n: int) -> int:
     """The grid of both passes for ``n`` rows."""
@@ -63,16 +56,6 @@ def blocks_for(n: int) -> int:
 
 # Upper-triangle index of JᵀJ's entry (i, j), i <= j, row by row.
 TRI = {(i, j): k for k, (i, j) in enumerate((i, j) for i in range(6) for j in range(i, 6))}
-
-
-@functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = native.load("gn_kernels")
-    fn = lib.gn_step_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = (p, i, p, i, p, i, p, i, p, i, p, i, i, i, i, p, p, p, p)
-    fn.restype = ctypes.c_int
-    return lib
 
 
 def _row_stride(name, t: torch.Tensor, width: Optional[int], n: int) -> int:
@@ -149,7 +132,8 @@ def gn_step_kernel(src, dst, src_normals, dst_normals, w_pp, w_pl, ws: Optional[
         ws = torch.empty(WORKSPACE, dtype=torch.float64, device=src.device)
     out = torch.empty(OUT, dtype=torch.float32, device=src.device)
     valid = torch.empty((), dtype=torch.bool, device=src.device)
-    _launch(_launch_args(src, dst, src_normals, dst_normals, w_pp, w_pl, n), first, ws, out, valid)
+    native.launch("gn_step_launch", *_launch_args(src, dst, src_normals, dst_normals, w_pp, w_pl, n),
+                  int(first), ws.data_ptr(), out.data_ptr(), valid.data_ptr())
     return ws, out, valid
 
 
@@ -169,14 +153,6 @@ def _launch_args(src, dst, src_normals, dst_normals, w_pp, w_pl, n):
                            ("plane_weights", w_pl, None)):
         args += [None, 0] if t is None else [t.data_ptr(), _row_stride(name, t, width, n)]
     return args + [n, blocks_for(n)]
-
-
-def _launch(args, first, ws, out, valid) -> None:
-    err = _kernels().gn_step_launch(*args, int(first), ws.data_ptr(), out.data_ptr(), valid.data_ptr(),
-                                    torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gn_step: CUDA launch failed with error {err}")
-    launch_counts["gn_step"] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -25,10 +25,8 @@ import torch
 
 from .. import resolve_device
 from ..core.coalesced import coalesced_gather
-from ..core.coalesced import launch_counts as coalesced_launch_counts
 from ..core.rgbd import CameraIntrinsics, _zbuffer_winner_batched, depth_to_points_normals
 from ..core.transforms import Transform, compose, identity, inverse, per_stream
-from ..core.transforms import launch_counts as transforms_launch_counts
 from ..registration.icp import ICPResult, icp_projective_packed
 from .fusion import (
     FusionConfig,
@@ -40,7 +38,7 @@ from .fusion import (
     pack_camera_target,
 )
 from ..utils.profiling import annotate_function, count, span
-from .scan import RUNS, scan
+from .scan import scan
 
 
 def stack_maps(maps: List[FusionMap]) -> torch.Tensor:
@@ -283,7 +281,6 @@ def run_batched_fusion_sequences(
 
         out = scan(
             step, (data0, pose0.linear, pose0.translation, packed0), rest,
-            counters=(coalesced_launch_counts, transforms_launch_counts), runs=RUNS,
             key=("batched_fusion", cfg, intrinsics, h, w),
         )
         data = out.carry[0]

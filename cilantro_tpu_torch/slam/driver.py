@@ -20,10 +20,7 @@ import torch
 
 from .. import resolve_device
 from ..core.rgbd import CameraIntrinsics, depth_to_points_normals
-from ..core.coalesced import launch_counts as coalesced_launch_counts
 from ..core.transforms import Transform, from_matrix, identity
-from ..core.transforms import launch_counts as transforms_launch_counts
-from ..registration.gn_step import launch_counts as gn_step_launch_counts
 from ..registration.transform_estimation import estimate_rigid_point_to_point
 from .fusion import (
     FusionConfig,
@@ -237,8 +234,7 @@ def _fusion_scanned(depths, intrinsics, map_capacity, cfg, dev, stats, runs):
         return (fmap.data, pose.linear, pose.translation, packed), (pose.matrix(), res.iterations)
 
     out = scan(
-        step, (fmap0.data, pose0.linear, pose0.translation, packed0), depth_stack,
-        counters=(coalesced_launch_counts, transforms_launch_counts, gn_step_launch_counts), runs=runs,
+        step, (fmap0.data, pose0.linear, pose0.translation, packed0), depth_stack, runs=runs,
         key=("fusion_scanned", cfg, intrinsics, h, w),
     )
     with span("cilantro.entry.finish"):

@@ -41,14 +41,11 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .. import resolve_device
-from ..core.coalesced import launch_counts as coalesced_launch_counts
 from ..core.rgbd import CameraIntrinsics, depth_to_points_normals
 from ..core.transforms import Transform, identity
-from ..core.transforms import launch_counts as transforms_launch_counts
-from ..registration.gn_step import launch_counts as gn_step_launch_counts
 from .driver import FusionMetrics
 from .fusion import FusionConfig, FusionMap, fusion_step, init_map_from_frame, seed_localize_target
-from .scan import RUNS, scan
+from .scan import scan
 
 
 def make_pipeline_mesh(
@@ -180,10 +177,7 @@ def run_fusion_sequence_pipelined(
         # frame (scan copies the new carry onto the old).
         return state + tuple(nxt), ys
 
-    out = scan(
-        step, (fmap0.data, pose0.linear, pose0.translation, packed0) + tuple(inflight0), xs,
-        counters=(coalesced_launch_counts, transforms_launch_counts, gn_step_launch_counts), runs=RUNS,
-    )
+    out = scan(step, (fmap0.data, pose0.linear, pose0.translation, packed0) + tuple(inflight0), xs)
     fmap = FusionMap(data=out.carry[0])
     mats, iterations = out.ys
     if stats is not None:

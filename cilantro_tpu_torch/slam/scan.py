@@ -25,10 +25,11 @@ key must name every value the step reads that is neither in the carry nor
 in ``x``: a captured graph holds the addresses of the tensors it read and
 the Python values the step branched on at capture.
 
-A kernel wrapper counts its launches in Python, which runs once, at
-capture: a replay launches what the capture recorded, so the launches of a
-run are ``steps × launches_per_step``. A kept graph's replays add nothing
-to the wrappers' counters; its ``launches_per_step`` is its capture's.
+A kernel wrapper counts its launches in Python (``native.launch_counts``),
+which runs once, at capture: a replay launches what the capture recorded,
+so the launches of a run are ``steps × launches_per_step``. A kept graph's
+replays add nothing to the counts; its ``launches_per_step`` is its
+capture's.
 
 Each phase is a ``cilantro.scan.*`` span (:mod:`..utils.profiling`): the
 warm-up step and the capture, each pass over the sequence
@@ -43,11 +44,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.profiling import count, span
 
 RUNS = 3
@@ -61,7 +63,8 @@ class Scanned:
     device) and stacked ``ys`` (numpy, one row a step); host-clock and
     device seconds a step of the fastest timed run (``device_seconds`` from
     CUDA events, ``None`` on the CPU); and the kernel launches one step
-    makes, by counter name."""
+    makes, by kernel (every kernel of ``native.launch_counts``, 0 where the
+    step launches none)."""
 
     carry: Tensors
     ys: Tuple[np.ndarray, ...]
@@ -70,19 +73,15 @@ class Scanned:
     launches_per_step: Dict[str, int]
 
 
-def _counts(counters: Sequence[Dict[str, int]]) -> Dict[str, int]:
-    return {k: v for c in counters for k, v in c.items()}
-
-
-def _delta(before: Dict[str, int], counters) -> Dict[str, int]:
-    return {k: v - before[k] for k, v in _counts(counters).items()}
+def _delta(before: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - before[k] for k, v in native.launch_counts.items()}
 
 
 class _GraphStep:
     """One step captured on static buffers; :meth:`run` replays it over a
     sequence."""
 
-    def __init__(self, step: Step, carry0: Tensors, x0: torch.Tensor, counters):
+    def __init__(self, step: Step, carry0: Tensors, x0: torch.Tensor):
         with span("cilantro.scan.warmup"):
             self.carry = tuple(c.clone() for c in carry0)
             self.x = x0.clone()
@@ -95,12 +94,12 @@ class _GraphStep:
             with torch.cuda.stream(stream):
                 step(self.carry, self.x)
             torch.cuda.current_stream().wait_stream(stream)
-        before = _counts(counters)
+        before = dict(native.launch_counts)
         with span("cilantro.scan.capture"), torch.cuda.graph(self.graph, stream=stream):
             new_carry, self.ys = step(self.carry, self.x)
             for dst, src in zip(self.carry, new_carry):
                 dst.copy_(src)
-        self.launches = _delta(before, counters)
+        self.launches = _delta(before)
 
     def run(self, carry0: Tensors, xs: torch.Tensor) -> Tensors:
         for dst, src in zip(self.carry, carry0):
@@ -126,13 +125,13 @@ def clear() -> None:
     _kept.clear()
 
 
-def _graph_step(step: Step, carry0: Tensors, x0: torch.Tensor, counters,
+def _graph_step(step: Step, carry0: Tensors, x0: torch.Tensor,
                 key: Optional[Tuple[Hashable, ...]]) -> _GraphStep:
     """The captured step for this call: a new one without ``key``, else
     the site's kept one where the full key matches, else a new one that
     takes the site's slot."""
     if key is None:
-        return _GraphStep(step, carry0, x0, counters)
+        return _GraphStep(step, carry0, x0)
     site = key[0]
     full = (key, tuple((c.shape, c.dtype) for c in carry0), x0.shape, x0.dtype, x0.device)
     kept = _kept.pop(site, None)
@@ -141,7 +140,7 @@ def _graph_step(step: Step, carry0: Tensors, x0: torch.Tensor, counters,
         count("scan_graph_reused", 1)
     else:
         del kept  # the old graph's pool is free before the new capture
-        graph = _GraphStep(step, carry0, x0, counters)
+        graph = _GraphStep(step, carry0, x0)
         count("scan_graph_captured", 1)
     _kept[site] = (full, graph)
     return graph
@@ -152,7 +151,6 @@ def scan(
     carry0: Tensors,
     xs: torch.Tensor,
     *,
-    counters: Sequence[Dict[str, int]] = (),
     runs: int = RUNS,
     key: Optional[Tuple[Hashable, ...]] = None,
 ) -> Scanned:
@@ -161,10 +159,9 @@ def scan(
     drivers do, each run ended by the read-back of its stacked ``ys``. On
     the card the capture (unless kept) comes first and, when ``runs > 1``,
     one untimed run of the sequence (the JAX driver's compile and first
-    run); ``runs=1`` is one pass of the sequence. ``counters`` are the
-    launch-count dicts of the kernels the step may launch. The step
-    returns new tensors: none of its outputs may be a view of another
-    position's carry buffer, which the copy-back would overwrite.
+    run); ``runs=1`` is one pass of the sequence. The step returns new
+    tensors: none of its outputs may be a view of another position's carry
+    buffer, which the copy-back would overwrite.
 
     ``key``: ``(site, *values)``, where ``site`` names the caller's slot
     and ``values`` are every value the step reads besides the carry and
@@ -184,7 +181,7 @@ def scan(
     per-stream map for the life of the process."""
     dev = xs.device
     if dev.type == "cuda":
-        graph = _graph_step(step, carry0, xs[0], counters, key)
+        graph = _graph_step(step, carry0, xs[0], key)
         launches = graph.launches
         if runs > 1:
             with span("cilantro.scan.pass.untimed"):
@@ -207,7 +204,7 @@ def scan(
     best = best_dev = float("inf")
     for _ in range(runs):
         with span("cilantro.scan.pass.timed"):
-            before = _counts(counters)
+            before = dict(native.launch_counts)
             if dev.type == "cuda":
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
@@ -219,7 +216,7 @@ def scan(
             with span("cilantro.scan.readback"):
                 ys_host = tuple(y.cpu().numpy() for y in ys)
             if launches is None:
-                launches = {k: v // xs.shape[0] for k, v in _delta(before, counters).items()}
+                launches = {k: v // xs.shape[0] for k, v in _delta(before).items()}
             best = min(best, time.perf_counter() - t0)
             if dev.type == "cuda":
                 best_dev = min(best_dev, start.elapsed_time(end) * 1e-3)

@@ -13,12 +13,13 @@ Each is a CUDA C++ kernel (``csrc/splat_kernels.cu``, built for ``sm_90a``
 at first CUDA use) with a plain PyTorch version beside it. A wrapper runs
 the plain version only when its tensors lie on the CPU; for CUDA tensors it
 launches the kernel or raises. Every launch adds one to
-``launch_counts[<name>]``. Kernel and plain version are pure selects and
-agree bit for bit. :func:`splat_argmin2`'s kernel elects each tile's pairs
-in shared memory from the sources that land on it (a lexicographic
-minimum of ``(key, visit index)``, see the source); the other two read one
-source a pixel, :func:`flow_select_rows` two adjacent pixels a thread
-through a shared-memory table of each code's source offset.
+``native.launch_counts[<name>]``. Kernel and plain version are pure
+selects and agree bit for bit. :func:`splat_argmin2`'s kernel elects each
+tile's pairs in shared memory from the sources that land on it (a
+lexicographic minimum of ``(key, visit index)``, see the source); the
+other two read one source a pixel, :func:`flow_select_rows` two adjacent
+pixels a thread through a shared-memory table of each code's source
+offset.
 
 Padding convention (the JAX module's): callers pad the last two dims by
 ``R`` on each side (key=+inf, code/off=-1, rows=0) and pass
@@ -32,7 +33,6 @@ Codes: offset code ``oc = (dv+R)·(2R+1) + (du+R)``; row code ``oc·L + l``.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, Tuple
 
 import torch
@@ -40,19 +40,12 @@ import torch.nn.functional as F
 
 from .. import native
 
-launch_counts: Dict[str, int] = {
-    "window_read_codes": 0,
-    "splat_argmin2": 0,
-    "flow_select_rows": 0,
-}
+# The three kernels' names, as native.launch_counts counts them.
+KERNELS = ("window_read_codes", "splat_argmin2", "flow_select_rows")
 # The launch parameters of the last launch of splat_argmin2 (the tile of
 # target pixels a block elects and the blocks) and of flow_select_rows
 # (pixels a thread, decode route, store width, channel instance, blocks).
 kernel_design: Dict[str, Dict[str, object]] = {}
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 def offset_code(du: torch.Tensor, dv: torch.Tensor, radius: int) -> torch.Tensor:
@@ -69,32 +62,8 @@ def pad_hw(x: torch.Tensor, radius: int, fill) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Kernel library and argument checks.
+# Argument checks.
 # ---------------------------------------------------------------------------
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
-    "window_read_codes_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "splat_argmin2_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-    "flow_select_rows_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-}
-
-
-@functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = native.load("splat_kernels")
-    for fn, argtypes in _SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
-
-
-def _launch(name: str, fn: str, *args) -> None:
-    err = getattr(_kernels(), fn)(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launch_counts[name] += 1
 
 
 def _batch_stride(name: str, t: torch.Tensor, what: str) -> int:
@@ -158,8 +127,8 @@ def window_read_codes(
     bstride = _batch_stride(name, img, "img")
     _contiguous(name, ("off", off))
     out = torch.empty((b, c, h, w), dtype=torch.int32, device=off.device)
-    _launch(
-        name, "window_read_codes_launch",
+    native.launch(
+        "window_read_codes_launch",
         img.data_ptr(), off.data_ptr(), out.data_ptr(), b, c, h, w, r, bstride,
     )
     return out
@@ -226,8 +195,8 @@ def splat_argmin2(
     bc = torch.empty((b, h, w), dtype=torch.int32, device=dev)
     sc = torch.empty_like(bc)
     design = (ctypes.c_int * 3)()
-    _launch(
-        name, "splat_argmin2_launch",
+    native.launch(
+        "splat_argmin2_launch",
         key.data_ptr(), off.data_ptr(), bk.data_ptr(), bc.data_ptr(),
         sk.data_ptr(), sc.data_ptr(), b, layers, h, w, r, ctypes.addressof(design),
     )
@@ -287,8 +256,8 @@ def flow_select_rows(
     _contiguous(name, ("code", code))
     out = torch.empty((b, c, h, w), dtype=torch.float32, device=code.device)
     design = (ctypes.c_int * 5)()
-    _launch(
-        name, "flow_select_rows_launch",
+    native.launch(
+        "flow_select_rows_launch",
         rows.data_ptr(), code.data_ptr(), out.data_ptr(), b, layers, c, h, w, r,
         bstride, ctypes.addressof(design),
     )

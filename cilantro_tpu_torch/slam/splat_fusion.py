@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..core.rgbd import CameraIntrinsics, depth_to_points_normals, scalar_like
 from ..core.transforms import (
     Transform,
@@ -41,12 +41,11 @@ from ..core.transforms import (
     inverse,
     reproject_rigid,
 )
-from ..core.transforms import launch_counts as transforms_launch_counts
 from ..utils.profiling import annotate_function, count, span
 from .scan import scan
 from .splat import (
+    KERNELS,
     flow_select_rows,
-    launch_counts,
     offset_code,
     pad_hw,
     splat_argmin2,
@@ -454,10 +453,10 @@ def run_splat_sequence(
     t0 = time.perf_counter()
     t_first = None
     for fi in range(1, len(depths)):
-        before = dict(launch_counts)
+        before = {k: native.launch_counts[k] for k in KERNELS}
         smap, pose = splat_fusion_step(smap, staged[fi], pose, intrinsics, cfg=cfg)
         poses_dev.append(pose.matrix())
-        launches.append({k: launch_counts[k] - before[k] for k in before})
+        launches.append({k: native.launch_counts[k] - before[k] for k in KERNELS})
         if fi == 1:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -527,7 +526,6 @@ def run_splat_sequence_scanned(
     pose0 = identity(3, device=dev)
     out = scan(
         step, (smap0.rows, pose0.linear, pose0.translation), depth_stack,
-        counters=(launch_counts, transforms_launch_counts),
         key=("splat_scanned", cfg, intrinsics),
     )
     with span("cilantro.entry.finish"):
@@ -541,7 +539,7 @@ def run_splat_sequence_scanned(
                 iterations=[int(i) for i in iterations],
                 launches_per_frame=dict(out.launches_per_step),
             )
-        per_frame = {k: out.launches_per_step[k] for k in launch_counts}
+        per_frame = {k: out.launches_per_step[k] for k in KERNELS}
         poses = [np.eye(4, dtype=np.float32)] + list(mats)
         smap = SplatMap(rows=rows, pose=Transform(linear, translation))
     return smap, poses, out.seconds_per_step, [dict(per_frame) for _ in mats]

@@ -1,5 +1,5 @@
-"""Time the full kNN kernel's two designs, and source variants of the warp
-design, against each other on one CUDA card:
+"""Time the full kNN kernel's two designs, and variants of the warp design's
+plan, against each other on one CUDA card:
 
     python3 cilantro_tpu_torch/tools/knn_full_ab.py
 
@@ -7,16 +7,13 @@ Run from the root of a checkout. ``knn_full_rows`` picks its design from
 the shapes (``fused_knn._full_plan``); this tool reaches both designs
 through the internal launcher ``fused_knn._full_launch`` with a forced
 plan: a thread per query (the earlier design) and a warp per query, each with
-the grid the route would give it. It also builds ``csrc/knn_kernels.cu``
-once a variant with the warp design's ``KNN_WARP_*`` macros set by ``-D``
-(queue pairs a lane, keys a lane a step), into ``_build/variants/`` under a
-hash of the source and the flags, and runs runtime variants of the plan (8
-warps a block, no key splits). Each design is held bit for bit against
-``knn_full_rows_plain`` on each case and timed with ``chip_smoke.py``'s
-``device_ms``, visiting the designs forward and then backward: one JSON
-line a (case, design) with both visits, beside ``torch.cdist`` +
-``torch.topk`` over the same points (a two-call yardstick), the arithmetic
-bound and an empty launch.
+the grid the route would give it, and variants of the warp design's plan
+(4 or 8 warps a block, no key splits, key splits toward 8 blocks an SM).
+Each design is held bit for bit against ``knn_full_rows_plain`` on each
+case and timed with ``chip_smoke.py``'s ``device_ms``, visiting the
+designs forward and then backward: one JSON line a (case, design) with
+both visits, beside ``torch.cdist`` + ``torch.topk`` over the same points
+(a two-call yardstick), the arithmetic bound and an empty launch.
 
 Alone, the tool times the route's deciding cases on stand-ins made from a
 seed (mean shift's converged modes as 4 tight clusters of 300, the
@@ -28,22 +25,12 @@ inputs its paths recorded.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import json
 import os
 import statistics
-import subprocess
 import sys
 
 THREAD = "a thread per query (the earlier design)"
 WARP = "a warp per query (as built)"
-# Source variants of the warp design: (name, macros passed with -D).
-VARIANTS = (
-    ("warp: queues of at least 2 pairs a lane", ("KNN_WARP_QUEUE_MIN=2",)),
-    ("warp: 2 keys a lane a step", ("KNN_WARP_KEYS=2",)),
-    ("warp: 4 keys a lane a step", ("KNN_WARP_KEYS=4",)),
-)
 # Runtime variants of the warp design's plan: (name, warps a block, no key
 # splits, or the blocks an SM the splits aim for; unset keeps the route's).
 PLAN_VARIANTS = (
@@ -54,55 +41,9 @@ PLAN_VARIANTS = (
 )
 
 
-def _library(native, defines) -> tuple:
-    flags = [*native.NVCC_FLAGS, *(f"-D{d}" for d in defines)]
-    cu = native.CSRC / "knn_kernels.cu"
-    digest = hashlib.sha256(cu.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    return flags, native.BUILD_DIR / "variants" / f"libknn_kernels-{digest}.so"
-
-
-def start_build(native, variants=VARIANTS):
-    """Start one ``nvcc`` for each variant not built yet, all at once;
-    returns the jobs for :func:`finish_build`."""
-    (native.BUILD_DIR / "variants").mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name, defines in variants:
-        flags, so = _library(native, defines)
-        tmp, proc = so.with_name(f"{so.name}.{os.getpid()}.tmp"), None
-        if not so.exists():
-            proc = subprocess.Popen([native._nvcc(), *flags, "-o", str(tmp), str(native.CSRC / "knn_kernels.cu")],
-                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, so, tmp, proc))
-    return jobs
-
-
-def finish_build(jobs) -> dict:
-    """``{variant: library}``; a variant that does not compile is reported
-    and left out."""
-    from cilantro_tpu_torch.neighbors import fused_knn as fk
-
-    libs = {}
-    for name, so, tmp, proc in jobs:
-        ptxas = "built before"
-        if proc is not None:
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                print(json.dumps({"knn_full_variant": name, "built": False}), flush=True)
-                print(log[-2000:], file=sys.stderr)
-                continue
-            os.replace(tmp, so)
-            ptxas = [ln.strip() for ln in log.splitlines() if "knn_full_warp" in ln or "registers" in ln]
-        print(json.dumps({"knn_full_variant": name, "built": True, "ptxas": ptxas}), flush=True)
-        lib = ctypes.CDLL(str(so))
-        for fn, argtypes in fk._SIGNATURES.items():
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
-def designs(libs=None, plan_variants=()) -> list:
-    """``[(name, plan(n_queries, n_keys, k, sms), library or None)]``: the
-    two designs as built, then the source and plan variants."""
+def designs(plan_variants=()) -> list:
+    """``[(name, plan(n_queries, n_keys, k, sms))]``: the two designs, then
+    the plan variants."""
     from cilantro_tpu_torch.neighbors import fused_knn as fk
 
     def forced(design):
@@ -119,10 +60,8 @@ def designs(libs=None, plan_variants=()) -> list:
             return dict(routed, queries_per_block=w, splits=s, keys_per_split=length, blocks=-(-nq // w) * s)
         return plan
 
-    out = [(THREAD, forced("thread"), None), (WARP, forced("warp"), None)]
-    out += [(name, forced("warp"), lib) for name, lib in (libs or {}).items()]
-    out += [(name, varied(**fields), None) for name, fields in plan_variants]
-    return out
+    return [(THREAD, forced("thread")), (WARP, forced("warp"))] + [
+        (name, varied(**fields)) for name, fields in plan_variants]
 
 
 def full_case(q, keys, k, diag, key_valid=None):
@@ -207,9 +146,9 @@ def ab(named, cases: dict, card: str, strict: bool = True) -> dict:
         nbytes = (qp.numel() + kp.numel()) * 4 + qp.shape[0] * k * 8
         bound_ms, bound_by = cs.nn1_bound(pairs, nbytes, dim)
         visits, plans, wrong = {}, {}, set()
-        for name, plan_of, lib in named + named[::-1]:
+        for name, plan_of in named + named[::-1]:
             plan = plans.setdefault(name, plan_of(qp.shape[0], kp.shape[0], k, sms))
-            run = lambda: fk._full_launch(qp, kp, k, diag, plan, lib=lib)  # noqa: E731, B023
+            run = lambda: fk._full_launch(qp, kp, k, diag, plan)  # noqa: E731, B023
             if name not in visits and name not in wrong:
                 got = run()
                 torch.cuda.synchronize()
@@ -227,7 +166,7 @@ def ab(named, cases: dict, card: str, strict: bool = True) -> dict:
             if name not in wrong:
                 visits.setdefault(name, []).append(cs.device_ms(run))
         result[label] = {}
-        for name, _, _ in named:
+        for name, _ in named:
             if name in wrong or THREAD not in visits:
                 continue
             ms = statistics.fmean(visits[name])
@@ -250,16 +189,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
-    from cilantro_tpu_torch import native
 
-    jobs = start_build(native)
-    logs = native.build(("knn_kernels",))
-    for log in logs.values():
-        print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]}),
-              flush=True)
-    libs = finish_build(jobs)
     card = cs.card_line()
-    ab(designs(libs, PLAN_VARIANTS), synthetic_cases(cs), card, strict=False)
+    ab(designs(PLAN_VARIANTS), synthetic_cases(cs), card, strict=False)
     return 0
 
 

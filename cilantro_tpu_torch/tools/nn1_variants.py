@@ -71,7 +71,7 @@ def loop_counts(so: Path, nvcc: str, chains: int):
     return out
 
 
-def build(native, fused_nn):
+def build(native):
     src = (native.CSRC / "nn1_kernels.cu").read_text()
     out_dir = native.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -91,11 +91,7 @@ def build(native, fused_nn):
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {so}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for fn, argtypes in fused_nn._SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs.append(lib)
+        libs.append(native.declare(ctypes.CDLL(str(so)), "nn1_kernels"))
         chains = int(re.search(r"kChains = (\d+);", (so.parent / so.name[3:].replace(".so", ".cu")).read_text()).group(1))
         sass.append(loop_counts(so, native._nvcc(), chains))
     return libs, sass
@@ -115,7 +111,8 @@ def main() -> int:
     from cilantro_tpu_torch.neighbors import fused_nn as nn
     from cilantro_tpu_torch.slam.driver import synthetic_sequence
 
-    libs, sass = build(native, nn)
+    libs, sass = build(native)
+    built = native.load
     for (name, _), counts in zip(VARIANTS, sass):
         cs.emit(variant=name, sass_distance_loop=counts)
     dev = torch.device("cuda")
@@ -130,7 +127,7 @@ def main() -> int:
         qp, kp = nn._augment(q, kk, kv, nn._fused_rows_multiple(q.shape[0]), 1)
         want = nn.fused_rows_plain(qp, kp)
         for i in order + order[::-1]:
-            nn._kernels = lambda lib=libs[i]: lib
+            native.load = lambda name, lib=libs[i]: lib if name == "nn1_kernels" else built(name)
             fused = lambda: nn.fused_rows(qp, kp, terms=5)
             cs.assert_same_bits(f"{VARIANTS[i][0]} fused", fused(), want)
             cs.emit(variant=VARIANTS[i][0], case=case, fused_ms=cs.device_ms(fused),
@@ -141,7 +138,7 @@ def main() -> int:
         want = nn.masked_rows_plain(qp, kp, mask, tq, tm)
         lst = nn._compact_list(within, within.numel())
         for i in order + order[::-1]:
-            nn._kernels = lambda lib=libs[i]: lib
+            native.load = lambda name, lib=libs[i]: lib if name == "nn1_kernels" else built(name)
             masked = lambda: nn.masked_rows(qp, kp, mask, tile_q=tq, tile_m=tm, terms=5)
             compact = lambda: nn.compact_rows(qp, kp, *lst, tile_q=tq, tile_m=tm, terms=5)
             cs.assert_same_bits(f"{VARIANTS[i][0]} masked", masked(), want)

@@ -21,10 +21,6 @@ a CPU tensor. Importing this module runs nothing.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-from typing import Dict
-
 import numpy as np
 import torch
 
@@ -36,24 +32,10 @@ CAP = int(1.4 * HW)  # 430,080 pool rows
 N = HW  # rows gathered per frame
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 
-launch_counts: Dict[str, int] = {"scale2": 0}
-
-
-def reset_launch_counts() -> None:
-    launch_counts["scale2"] = 0
-
 
 def scale2_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`scale2`."""
     return 2.0 * x
-
-
-@functools.cache
-def _kernels() -> ctypes.CDLL:
-    lib = native.load("probe_kernels")
-    lib.scale2_launch.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p)
-    lib.scale2_launch.restype = ctypes.c_int
-    return lib
 
 
 def scale2(x: torch.Tensor) -> torch.Tensor:
@@ -66,12 +48,7 @@ def scale2(x: torch.Tensor) -> torch.Tensor:
     if not x.is_contiguous() or x.data_ptr() % 16 or x.numel() % 4:
         raise ValueError(f"{name}: x must be contiguous, 16-byte aligned and of a size divisible by 4")
     out = torch.empty_like(x)
-    err = _kernels().scale2_launch(
-        x.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream().cuda_stream
-    )
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launch_counts[name] += 1
+    native.launch("scale2_launch", x.data_ptr(), out.data_ptr(), x.numel())
     return out
 
 

@@ -28,6 +28,7 @@ from cilantro_tpu.core.transforms import Transform as JTransform
 from cilantro_tpu.core.transforms import identity as j_identity
 from cilantro_tpu.slam import batched_fusion as jbf
 from cilantro_tpu.slam import fusion as jf
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.core import coalesced, transforms
 from cilantro_tpu_torch.core.rgbd import CameraIntrinsics as TK
 from cilantro_tpu_torch.core.rgbd import _zbuffer_winner_batched as t_zbuffer_batched
@@ -180,12 +181,11 @@ def test_run_batched_fusion_sequences_matches_jax_and_single_streams(sequences):
     jcfg, tcfg = jf.FusionConfig(localize_stride=2), tf_.FusionConfig(localize_stride=2)
     jdata, jm = jbf.run_batched_fusion_sequences(stacks, JKS, map_capacity=CAP, cfg=jcfg)
     stats = {}
-    coalesced.reset_launch_counts()
-    transforms.reset_launch_counts()
+    native.reset_launch_counts()
     tdata, tm = tbf.run_batched_fusion_sequences(stacks, TKS, map_capacity=CAP, cfg=tcfg, device="cpu",
                                                  stats=stats)
     # CPU tensors take the plain versions: no kernel launched.
-    assert stats["launches_per_step"] == {"coalesced_gather": 0, "project_to_rotation": 0}
+    assert stats["launches_per_step"] == dict.fromkeys(native.launch_counts, 0)
     assert stats["device_seconds_per_step"] is None
     assert (tm.streams, tm.frames, tm.poses.shape) == (2, FRAMES, (2, FRAMES, 4, 4))
     assert tm.aggregate_fps == pytest.approx(2 / tm.seconds_per_step)

@@ -14,6 +14,7 @@ import torch
 
 from cilantro_tpu.core.coalesced import NSEGB
 from cilantro_tpu.core.coalesced import coalesced_gather as j_gather
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.core import coalesced as tc
 
 SEG = 8  # rows per TPU segment at width 16
@@ -96,9 +97,9 @@ def test_out_of_range_indices_clamp():
 
 def test_cpu_gather_launches_nothing_and_checks_idx():
     src = torch.from_numpy(_src(64, 16))
-    before = tc.launch_counts["coalesced_gather"]
+    before = native.launch_counts["coalesced_gather"]
     tc.coalesced_gather(src, torch.arange(10, dtype=torch.int32))
-    assert tc.launch_counts["coalesced_gather"] == before
+    assert native.launch_counts["coalesced_gather"] == before
     with pytest.raises(TypeError, match="dtype"):
         tc.coalesced_gather(src, torch.arange(10))
 
@@ -109,12 +110,12 @@ def test_cuda_path_refuses_what_the_kernel_cannot_index(monkeypatch):
     32-bit). CPU tensors are sent down that path here; expanded views give
     the sizes without the memory."""
     monkeypatch.setattr(tc.native, "on_cpu", lambda name, *tensors: False)
-    before = tc.launch_counts["coalesced_gather"]
+    before = native.launch_counts["coalesced_gather"]
     with pytest.raises(ValueError, match=r"2\^31 float4s or more"):
         tc.coalesced_gather(torch.zeros(4, 16), torch.zeros(1, dtype=torch.int32).expand(2**29))
     with pytest.raises(ValueError, match=r"2\^31 float4s or more"):
         tc.coalesced_gather(torch.zeros(4, 8), torch.zeros(1, dtype=torch.int32).expand(2**30))
     with pytest.raises(ValueError, match=r"src has 2\^31 elements or more"):
         tc.coalesced_gather(torch.zeros(1, 16).expand(2**27, 16), torch.zeros(3, dtype=torch.int32))
-    assert tc.launch_counts["coalesced_gather"] == before
+    assert native.launch_counts["coalesced_gather"] == before
 

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.core import coalesced as tc
 
 
@@ -28,10 +29,10 @@ def cuda():
 def _gather(src, idx, launches=1):
     """Kernel output for ``(src, idx)``, checked bit for bit against the
     plain version and for the number of kernel launches it made."""
-    before = tc.launch_counts["coalesced_gather"]
+    before = native.launch_counts["coalesced_gather"]
     out = tc.coalesced_gather(src, idx)
     torch.cuda.synchronize()
-    assert tc.launch_counts["coalesced_gather"] - before == launches
+    assert native.launch_counts["coalesced_gather"] - before == launches
     want = tc.coalesced_gather_plain(src, idx)
     assert out.shape == want.shape
     assert torch.equal(out.cpu().view(torch.int32), want.cpu().view(torch.int32))
@@ -169,7 +170,7 @@ def test_kernel_reads_an_offset_view(cuda, width):
 def test_launcher_refuses_what_it_cannot_index(cuda):
     """The C launcher refuses, without launching, a width other than 8 or 16
     and 2^31 float4s or more of output or source (its offsets are 32-bit)."""
-    lib = tc._kernels()
+    lib = native.load("gather_kernels")
     stream = torch.cuda.current_stream().cuda_stream
     invalid = 1  # cudaErrorInvalidValue
     assert lib.coalesced_gather_launch(0, 0, 0, 10, 12, 5, stream) == invalid
@@ -184,12 +185,12 @@ def test_launcher_refuses_what_it_cannot_index(cuda):
 @pytest.mark.cuda
 def test_other_widths_and_dtypes_raise(cuda):
     idx = _idx(np.arange(64) - 3, cuda)
-    before = tc.launch_counts["coalesced_gather"]
+    before = native.launch_counts["coalesced_gather"]
     with pytest.raises(ValueError, match="wide"):
         tc.coalesced_gather(_src(256, 3, cuda), idx)
     with pytest.raises(TypeError, match="dtype"):
         tc.coalesced_gather(_src(256, 16, cuda).double(), idx)
-    assert tc.launch_counts["coalesced_gather"] == before
+    assert native.launch_counts["coalesced_gather"] == before
 
 
 @pytest.mark.cuda
@@ -221,12 +222,12 @@ def test_fusion_step_on_card_matches_cpu(cuda):
     for dev in (cuda, torch.device("cpu")):
         f0, f1 = (depth_to_points_normals(torch.from_numpy(d).to(dev), k) for d in depths)
         fmap = fusion.init_map_from_frame(2 * h * w, f0[0], f0[1], None, f0[2])
-        before = tc.launch_counts["coalesced_gather"]
+        before = native.launch_counts["coalesced_gather"]
         fmap, pose, res, imap, packed = fusion.fusion_step(
             fmap, f1[0], f1[1], None, f1[2], identity(3, device=dev), k,
             height=h, width=w, cfg=cfg,
         )
-        launched = tc.launch_counts["coalesced_gather"] - before
+        launched = native.launch_counts["coalesced_gather"] - before
         out[dev.type] = (fmap.data.cpu(), pose.matrix().cpu(), launched, int(res.iterations))
     (d_g, p_g, l_g, it_g), (d_c, p_c, l_c, it_c) = out["cuda"], out["cpu"]
     assert l_c == 0 and l_g == 2 + it_g  # integrate's two gathers and one per ICP iteration

@@ -38,11 +38,11 @@ def _estimated(device):
 
 @pytest.mark.cuda
 def test_rigid_icp_example_card_matches_cpu(cuda):
-    from cilantro_tpu_torch.neighbors import fused_nn
+    from cilantro_tpu_torch import native
 
-    fused_nn.reset_launch_counts()
+    native.reset_launch_counts()
     card, err = _estimated("cuda")
-    assert fused_nn.launch_counts["nn1_compact"] > 0
+    assert native.launch_counts["nn1_compact"] > 0
     cpu, _ = _estimated("cpu")
     np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-4)
     assert err < 1e-3

@@ -23,7 +23,7 @@ from cilantro_tpu.core.transforms import Transform as JTransform
 from cilantro_tpu.core.transforms import identity as j_identity
 from cilantro_tpu.slam import driver as jdrv
 from cilantro_tpu.slam import fusion as jf
-from cilantro_tpu_torch import interop
+from cilantro_tpu_torch import interop, native
 from cilantro_tpu_torch.core import coalesced
 from cilantro_tpu_torch.core.rgbd import CameraIntrinsics as TK
 from cilantro_tpu_torch.core.transforms import identity as t_identity
@@ -285,11 +285,11 @@ def test_run_fusion_sequence_matches_jax():
     jmap, jm = jdrv.run_fusion_sequence(depths, JK.make(*args), map_capacity=4 * h * w,
                                         cfg=jf.FusionConfig(localize_stride=2, coalesced_gathers=True))
     seen = []
-    coalesced.reset_launch_counts()
+    native.reset_launch_counts()
     tmap, tm = tdrv.run_fusion_sequence(depths, TK.make(*args), map_capacity=4 * h * w,
                                         cfg=tf_.FusionConfig(localize_stride=2), device="cpu",
                                         on_frame=lambda i, m, p: seen.append(i))
-    assert coalesced.launch_counts["coalesced_gather"] == 0  # CPU tensors: the plain version
+    assert native.launch_counts["coalesced_gather"] == 0  # CPU tensors: the plain version
     assert seen == list(range(1, 6)) and tm.frames == 6
     np.testing.assert_allclose(np.stack(tm.poses), np.stack(jm.poses), rtol=0, atol=1e-4)
     assert tm.icp_iterations == jm.icp_iterations

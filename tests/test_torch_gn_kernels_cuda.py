@@ -30,6 +30,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
 from cilantro_tpu_torch.registration import gn_step
 from cilantro_tpu_torch.registration import transform_estimation as te
@@ -167,10 +168,10 @@ def test_captured_graph_gives_the_eager_bits(cuda, recorded, path):
         _estimate(rows)  # warm-up off the default stream, as a capture wants
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = gn_step.launch_counts["gn_step"]
+    before = native.launch_counts["gn_step"]
     with torch.cuda.graph(graph):
         tf, valid = _estimate(rows)
-    assert gn_step.launch_counts["gn_step"] - before == 1
+    assert native.launch_counts["gn_step"] - before == 1
     graph.replay()
     torch.cuda.synchronize()
     assert _same(tf.linear, eager.linear) and _same(tf.translation, eager.translation)
@@ -241,9 +242,9 @@ def test_no_iteration_launches_nothing(cuda, recorded, path):
     """No GN iteration takes the einsum path: the uncentred identity, no
     launch."""
     rows = recorded[path]
-    before = gn_step.launch_counts["gn_step"]
+    before = native.launch_counts["gn_step"]
     got, ok = _estimate(rows, max_iterations=0)
-    assert gn_step.launch_counts["gn_step"] == before
+    assert native.launch_counts["gn_step"] == before
     with mock.patch.object(gn_step, "takes", lambda *a: False):
         want, wok = _estimate(rows, max_iterations=0)
     assert _same(got.linear, want.linear) and _same(got.translation, want.translation)
@@ -258,8 +259,8 @@ def test_any_layout_takes_the_kernels(cuda, recorded, path):
     src, dst, ns, nd, wpp, wpl = recorded[path]
     laid = tuple(None if t is None else t.T.contiguous().T for t in (src, dst, ns, nd))
     assert laid[0].stride(-1) != 1
-    before = gn_step.launch_counts["gn_step"]
+    before = native.launch_counts["gn_step"]
     got, _ = _estimate(laid + (torch.tensor(0.25, device=cuda), torch.tensor(1.0, device=cuda)))
-    assert gn_step.launch_counts["gn_step"] == before + 1
+    assert native.launch_counts["gn_step"] == before + 1
     want, _ = _estimate((src, dst, ns, nd, torch.full_like(wpl, 0.25), torch.ones_like(wpl)))
     assert _same(got.linear, want.linear) and _same(got.translation, want.translation)

@@ -10,6 +10,7 @@ run on the card with
 import pytest
 import torch
 
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.core.rgbd import CameraIntrinsics
 from cilantro_tpu_torch.neighbors import fused_nn
 from cilantro_tpu_torch.slam.odometry import OdometryConfig, run_icp_odometry
@@ -37,9 +38,9 @@ def test_entry_on_the_card_matches_the_plain_reference(cuda):
     depths, _ = clips.make_clips(2147470101, 1, 2, SENSOR, 0.004, cuda)
     k = CameraIntrinsics.make(SENSOR["fx"], SENSOR["fy"], SENSOR["cx"], SENSOR["cy"])
     cfg = OdometryConfig()
-    fused_nn.reset_launch_counts()
+    native.reset_launch_counts()
     poses, iterations = run_icp_odometry(depths[0], k, cfg=cfg, device=cuda)
-    launches = dict(fused_nn.launch_counts)
+    launches = dict(native.launch_counts)
     assert launches["nn1_fused"] == 0
     assert launches["nn1_compact"] + launches["nn1_masked"] == int(iterations.sum())
     settings = dict(levels=cfg.levels, convergence_tol=cfg.convergence_tol,

@@ -18,6 +18,7 @@ import torch
 
 from cilantro_tpu.neighbors import bruteforce as jbf
 from cilantro_tpu.neighbors import pallas_nn as jnn
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.neighbors import bruteforce as tbf
 from cilantro_tpu_torch.neighbors import fused_knn as tk
 from cilantro_tpu_torch.neighbors import fused_nn as tnn
@@ -109,11 +110,11 @@ def test_compact_plain_matches_pallas(budget, diag):
         qp, kp, jnp.asarray(mask), k=10, budget=b, tile_q=128, tile_m=256,
         exclude_diag=diag, interpret=True,
     )
-    tk.reset_launch_counts()
+    native.reset_launch_counts()
     dt, it = tk._knn_compact(_t(qp), _t(kp), _t(mask), k=10, budget=b, tile_q=128, tile_m=256,
                              exclude_diag=diag)
     _assert_knn_close(_padded(q, qp.shape[0]), _padded(keys, kp.shape[0]), dt, it, dj, ij)
-    assert sum(tk.launch_counts.values()) == 0  # CPU tensors: plain versions
+    assert sum(native.launch_counts.values()) == 0  # CPU tensors: plain versions
 
 
 def _tie_case(name):

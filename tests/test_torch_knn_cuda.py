@@ -15,10 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.neighbors import fused_knn as knn
 from cilantro_tpu_torch.neighbors import fused_nn as nn
 
 TQ, TM = 128, 256
+KNN_KERNELS = ("knn_full", "knn_compact")
 
 
 @pytest.fixture()
@@ -37,11 +39,11 @@ def _same(kernel_out, plain_out):
 def _launched(name, fn):
     """Run ``fn`` and check that it launched kernel ``name`` once and no
     other kNN kernel."""
-    before = dict(knn.launch_counts)
+    before = {k: native.launch_counts[k] for k in KNN_KERNELS}
     out = fn()
     torch.cuda.synchronize()
-    after = dict(knn.launch_counts)
-    assert {k: after[k] - before[k] for k in after} == {k: int(k == name) for k in after}
+    after = {k: native.launch_counts[k] - before[k] for k in KNN_KERNELS}
+    assert after == {k: int(k == name) for k in KNN_KERNELS}
     return out
 
 
@@ -289,10 +291,10 @@ def test_grid_radius_normals_on_card_match_cpu(cuda):
     xy = rng.uniform(-0.3, 0.3, (9000, 2))
     z = 1.5 + 0.05 * np.sin(6 * xy[:, 0]) * np.cos(5 * xy[:, 1])
     pts = np.column_stack([xy, z]).astype(np.float32)
-    before = dict(knn.launch_counts)
+    before = {k: native.launch_counts[k] for k in KNN_KERNELS}
     card = from_numpy(pts, device=cuda).with_normals_radius(0.02)
     torch.cuda.synchronize()
-    assert dict(knn.launch_counts) == before
+    assert {k: native.launch_counts[k] for k in KNN_KERNELS} == before
     cpu = from_numpy(pts, device="cpu").with_normals_radius(0.02)
     vg, vc = card.valid.cpu(), cpu.valid
     assert float((vg == vc).float().mean()) >= 0.99 and int(vc.sum()) > 8000
@@ -326,10 +328,10 @@ def test_scale2_kernel_matches_plain(shape, cuda):
 
     x = torch.randn(shape, device=cuda)
     x.view(-1)[:4] = torch.tensor([float("inf"), float("nan"), -0.0, 3e38])
-    before = probe.launch_counts["scale2"]
+    before = native.launch_counts["scale2"]
     out = probe.scale2(x)
     torch.cuda.synchronize()
-    assert probe.launch_counts["scale2"] == before + 1
+    assert native.launch_counts["scale2"] == before + 1
     assert torch.equal(out.view(torch.int32), probe.scale2_plain(x).view(torch.int32))
     with pytest.raises(ValueError, match="divisible by 4"):
         probe.scale2(torch.ones(6, device=cuda))

@@ -127,9 +127,10 @@ def _dist_rows(q_row, keys):
     return nn._aug_dist(torch.from_numpy(q_row[None]), torch.from_numpy(keys))[0].numpy()
 
 
-def model_full_warp(qp, kp, k, diag, splits=1, stage=fk._WARP_STAGE, keys_a_step=fk._WARP_KEYS):
+def model_full_warp(qp, kp, k, diag, splits=1, stage=fk._WARP_STAGE):
     """``knn_full_warp_kernel`` for every query row: ``(dist, idx)``."""
     slots, queue = fk._warp_lists(k)
+    keys_a_step = fk._WARP_KEYS
     lists, step = slots // 32, 32 * keys_a_step
     n_keys = kp.shape[0]
     split_len = stage * -(-(-(-n_keys // splits)) // stage)
@@ -203,29 +204,27 @@ def _operands(seed, qn, mn, same_cloud=False, grid=False, invalid_queries=False)
 
 
 @pytest.mark.parametrize(
-    "k,diag,splits,stage,kind,keys_a_step",
+    "k,diag,splits,stage,kind",
     [
-        (1, False, 1, 1024, "random", 1),
-        (12, True, 1, 64, "random", 1),
-        (12, False, 2, 64, "random", 2),
-        (32, False, 2, 64, "grid", 1),
-        (33, True, 1, 1024, "grid", 1),
-        (33, False, 3, 64, "random", 2),
-        (65, True, 2, 128, "random", 1),
-        (200, False, 1, 1024, "invalid", 1),
-        (513, True, 1, 1024, "random", 1),
+        (1, False, 1, 1024, "random"),
+        (12, True, 1, 64, "random"),
+        (12, False, 2, 64, "random"),
+        (32, False, 2, 64, "grid"),
+        (33, True, 1, 1024, "grid"),
+        (33, False, 3, 64, "random"),
+        (65, True, 2, 128, "random"),
+        (200, False, 1, 1024, "invalid"),
+        (513, True, 1, 1024, "random"),
     ],
 )
-def test_warp_model_matches_plain(k, diag, splits, stage, kind, keys_a_step):
+def test_warp_model_matches_plain(k, diag, splits, stage, kind):
     """Every list size from 32 to 1,024 slots (k = 513 has 1,024), queues
     of 4 and 8 pairs, one stage or several (a 64-key stage is one or two
     steps), splits of 2-3 and the tie-heavy 4-point grid; the diagonal with
-    the query rows inside the staged range; 1 key a lane a step (as built)
-    and 2 (the ``KNN_WARP_KEYS=2`` variant ``tools/knn_full_ab.py``
-    times)."""
+    the query rows inside the staged range."""
     qn, mn = (5, 900) if k > 64 else (6, 300)
     qp, kp = _operands(k, qn, mn, same_cloud=diag, grid=kind == "grid", invalid_queries=kind == "invalid")
-    got = model_full_warp(qp.numpy(), kp.numpy(), k, diag, splits, stage, keys_a_step)
+    got = model_full_warp(qp.numpy(), kp.numpy(), k, diag, splits, stage)
     want = fk.knn_full_rows_plain(qp, kp, k, diag)
     np.testing.assert_array_equal(got[0].view(np.int32), want[0].numpy().view(np.int32))
     np.testing.assert_array_equal(got[1], want[1].numpy())

@@ -18,6 +18,7 @@ import torch
 from cilantro_tpu.neighbors import bruteforce as jbf
 from cilantro_tpu.neighbors import gridhash as jgh
 from cilantro_tpu.neighbors import pallas_nn as jnn
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.neighbors import bruteforce as tbf
 from cilantro_tpu_torch.neighbors import fused_nn as tnn
 from cilantro_tpu_torch.neighbors import gridhash as tgh
@@ -105,10 +106,10 @@ def test_compact_plain_matches_pallas(budget):
     dj, ij = jnn._nn1_pallas_compact(
         qp, kp, jnp.asarray(mask), budget=b, tile_q=128, tile_m=256, interpret=True
     )
-    tnn.reset_launch_counts()
+    native.reset_launch_counts()
     dt, it = tnn._nn1_compact(tqp, tkp, _t(mask), budget=b, tile_q=128, tile_m=256)
     _assert_nn_close(qq, kk, dt.numpy(), it.numpy(), dj, ij)
-    assert sum(tnn.launch_counts.values()) == 0  # CPU tensors: plain versions
+    assert sum(native.launch_counts.values()) == 0  # CPU tensors: plain versions
 
 
 def test_compact_list_matches_pallas_wrapper_layout():

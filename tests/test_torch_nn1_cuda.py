@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.neighbors import fused_nn as nn
 
 TQ, TM = 128, 256
+NN1_KERNELS = ("nn1_fused", "nn1_masked", "nn1_compact")
 
 
 @pytest.fixture()
@@ -34,12 +36,11 @@ def _same(kernel_out, plain_out):
 def _launched(name, fn):
     """Run ``fn`` and check that it launched kernel ``name`` once and no
     other nn1 kernel."""
-    before = dict(nn.launch_counts)
+    before = {k: native.launch_counts[k] for k in NN1_KERNELS}
     out = fn()
     torch.cuda.synchronize()
-    after = dict(nn.launch_counts)
-    assert {k: after[k] - before[k] for k in after} == {
-        k: int(k == name) for k in after
+    assert {k: native.launch_counts[k] - before[k] for k in NN1_KERNELS} == {
+        k: int(k == name) for k in NN1_KERNELS
     }
     return out
 
@@ -124,9 +125,9 @@ def test_entry_runs_the_fused_kernel(cuda):
     from cilantro_tpu_torch.entry import entry
 
     fwd, args = entry()
-    before = nn.launch_counts["nn1_fused"]
+    before = native.launch_counts["nn1_fused"]
     lin, tr = fwd(*args)
-    assert nn.launch_counts["nn1_fused"] > before
+    assert native.launch_counts["nn1_fused"] > before
     # The toy registration stops unconverged after 10 iterations, so float32
     # reduction order shows through (it moves with the CPU thread count
     # alone); a wrong nearest neighbour moves it by far more than 1e-3.

@@ -30,7 +30,7 @@ from cilantro_tpu.core.rgbd import CameraIntrinsics as JIntrinsics
 from cilantro_tpu.slam import driver as jd
 from cilantro_tpu.slam import splat_fusion as jsf
 from cilantro_tpu.slam.fusion import FusionConfig as JFusionConfig
-from cilantro_tpu_torch import interop
+from cilantro_tpu_torch import interop, native
 from cilantro_tpu_torch.core import transforms as tt
 from cilantro_tpu_torch.core.rgbd import depth_to_points_normals
 from cilantro_tpu_torch.registration.icp import icp_projective_packed
@@ -210,7 +210,7 @@ def test_scanned_splat_matches_host_loop_bit_for_bit(splat_runs):
 
 def test_scanned_splat_launches_nothing_on_the_cpu(splat_runs):
     r = splat_runs
-    assert r["launches"] == [dict.fromkeys(tsf.launch_counts, 0)] * 2
+    assert r["launches"] == [dict.fromkeys(tsf.KERNELS, 0)] * 2
     assert set(r["stats"]["launches_per_frame"].values()) == {0}
     assert r["stats"]["device_seconds_per_frame"] is None
 
@@ -284,7 +284,8 @@ def test_scan_runs_the_step_in_order_on_the_cpu():
     np.testing.assert_array_equal(out.ys[0], [1.0, 4.0, 11.0])
     np.testing.assert_array_equal(out.ys[1], [1, 4, 11])
     assert float(out.carry[0]) == 11.0 and calls == [1.0, 2.0, 3.0] * 3
-    assert out.device_seconds_per_step is None and out.launches_per_step == {}
+    assert out.device_seconds_per_step is None
+    assert out.launches_per_step == dict.fromkeys(native.launch_counts, 0)
 
 
 def _doubling_step(carry, x):
@@ -311,7 +312,7 @@ def test_keyed_scan_on_the_cpu_equals_keyless():
     assert torch.equal(plain.carry[0], keyed.carry[0])
     for a, b in zip(plain.ys, keyed.ys):
         np.testing.assert_array_equal(a, b)
-    assert keyed.launches_per_step == plain.launches_per_step == {}
+    assert keyed.launches_per_step == plain.launches_per_step == dict.fromkeys(native.launch_counts, 0)
 
 
 def test_kept_graph_one_slot_a_site(monkeypatch):
@@ -323,7 +324,7 @@ def test_kept_graph_one_slot_a_site(monkeypatch):
     captured = []
 
     class Capture:
-        def __init__(self, step, carry0, x0, counters):
+        def __init__(self, step, carry0, x0):
             captured.append(self)
 
     monkeypatch.setattr(scan_mod, "_GraphStep", Capture)
@@ -331,7 +332,7 @@ def test_kept_graph_one_slot_a_site(monkeypatch):
     carry, x = (torch.zeros(2), torch.zeros((), dtype=torch.int32)), torch.zeros(3)
 
     def get(key, carry=carry, x=x):
-        return scan_mod._graph_step(_doubling_step, carry, x, (), key)
+        return scan_mod._graph_step(_doubling_step, carry, x, key)
 
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         a = get(("a", 1.0))

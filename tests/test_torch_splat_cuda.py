@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.slam import splat
 from test_torch_argmin2_election import edge_case_inputs
 from test_torch_select_rows_decode import BATCHES, CODE_KINDS, PIX, select_rows_case
@@ -32,10 +33,10 @@ def _bits(t: torch.Tensor) -> np.ndarray:
 
 def _launched(name, fn):
     """Run ``fn`` and check that it launched kernel ``name`` exactly once."""
-    before = splat.launch_counts[name]
+    before = native.launch_counts[name]
     out = fn()
     torch.cuda.synchronize()
-    assert splat.launch_counts[name] == before + 1
+    assert native.launch_counts[name] == before + 1
     return out
 
 

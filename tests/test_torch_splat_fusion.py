@@ -25,7 +25,7 @@ from cilantro_tpu.core.transforms import (
 from cilantro_tpu.slam import splat as jsplat
 from cilantro_tpu.slam import splat_fusion as jsf
 from cilantro_tpu.slam.driver import ate_rmse as j_ate, synthetic_sequence
-from cilantro_tpu_torch import interop
+from cilantro_tpu_torch import interop, native
 from cilantro_tpu_torch.core.transforms import inverse as t_inverse
 from cilantro_tpu_torch.slam import splat as tsplat
 from cilantro_tpu_torch.slam import splat_fusion as tsf
@@ -194,7 +194,7 @@ def test_sequence_radius2_matches_jax(radius2_runs):
 def test_sequence_radius2_map_and_launches(radius2_runs):
     """The CPU run used the plain versions: no kernel launched."""
     _, _, smap, launches, _ = radius2_runs
-    assert launches == [dict.fromkeys(tsplat.launch_counts, 0)] * 2
+    assert launches == [dict.fromkeys(tsplat.KERNELS, 0)] * 2
     pts, nrm, conf = tsf.extract_cloud(smap)
     assert len(pts) > 0.5 * H * W
     assert np.isfinite(pts).all() and np.isfinite(nrm).all() and (conf > 0).all()

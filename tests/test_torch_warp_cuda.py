@@ -19,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from cilantro_tpu_torch import native
 from cilantro_tpu_torch.core import transforms as tt
-from cilantro_tpu_torch.core.coalesced import launch_counts as gather_counts
 from cilantro_tpu_torch.core.rgbd import CameraIntrinsics, depth_to_points_normals
 from cilantro_tpu_torch.neighbors import fused_knn, fused_nn
 from cilantro_tpu_torch.registration import warp_field as tw
@@ -74,9 +74,9 @@ def _assert_warped_close(graph, tf_card, tf_cpu, src):
 def test_graph_on_card_launches_knn_and_matches_cpu(cuda):
     src = _surface(np.random.default_rng(0), 1500)
     nodes = _nodes(src)
-    fused_knn.reset_launch_counts()
+    native.reset_launch_counts()
     card = tw.build_deformation_graph(src, nodes, k_anchors=4, k_arcs=6, device=cuda)
-    assert fused_knn.launch_counts["knn_full"] >= 2  # anchors and arcs: Q·M < 2^26
+    assert native.launch_counts["knn_full"] >= 2  # anchors and arcs: Q·M < 2^26
     cpu = tw.build_deformation_graph(src, nodes, k_anchors=4, k_arcs=6, device="cpu")
     same = (card.anchors.cpu() == cpu.anchors).all(dim=1)
     assert float(same.float().mean()) > 0.998
@@ -88,9 +88,9 @@ def test_graph_on_card_launches_knn_and_matches_cpu(cuda):
 @pytest.mark.parametrize("solver", ["direct", "cg"])
 def test_icp_warp_field_card_matches_cpu(cuda, solver):
     src, dst, graph = _case(cuda)
-    tt.reset_launch_counts()
+    native.reset_launch_counts()
     tf_card, it_card, _ = tw.icp_warp_field(graph, src, dst, solver=solver, device=cuda, **_KW)
-    assert tt.launch_counts["project_to_rotation"] == int(it_card)
+    assert native.launch_counts["project_to_rotation"] == int(it_card)
     tf_cpu, it_cpu, _ = tw.icp_warp_field(graph.to("cpu"), src, dst, solver=solver, device="cpu", **_KW)
     assert int(it_card) == int(it_cpu)
     _assert_warped_close(graph, tf_card, tf_cpu, src)
@@ -121,9 +121,9 @@ def test_projective_card_matches_cpu_through_the_gather_kernel(cuda):
     graph = tw.build_deformation_graph(src, _nodes(src[ok], 0.15), k_anchors=4, k_arcs=6, device=cuda)
     kw = dict(height=h, width=w, max_corr_dist_sq=0.01, point_weight=1.0, plane_weight=0.0,
               stiffness=5.0, max_iterations=12, convergence_tol=1e-4, src_valid=ok, dst_valid=ok)
-    before = gather_counts["coalesced_gather"]
+    before = native.launch_counts["coalesced_gather"]
     tf_card, it_card, _ = tw.icp_warp_field_projective(graph, src, dst, k, device=cuda, **kw)
-    assert gather_counts["coalesced_gather"] - before == int(it_card)
+    assert native.launch_counts["coalesced_gather"] - before == int(it_card)
     tf_cpu, it_cpu, _ = tw.icp_warp_field_projective(graph.to("cpu"), src, dst, k, device="cpu", **kw)
     assert int(it_card) == int(it_cpu)
     _assert_warped_close(graph, tf_card, tf_cpu, src)
@@ -220,10 +220,10 @@ def test_pruned_correspondences_at_scale(cuda):
     dst = src.copy()
     dst[:, 2] += 0.02 * np.sin(8.0 * src[:, 0])
     graph = tw.build_deformation_graph(src, _nodes(src, 0.05), k_anchors=4, k_arcs=8, device=cuda)
-    fused_nn.reset_launch_counts()
+    native.reset_launch_counts()
     tf, it, _ = tw.icp_warp_field(graph, src, dst, max_corr_dist_sq=0.0025, point_weight=1.0,
                                   plane_weight=0.0, stiffness=50.0, max_iterations=4, device=cuda)
-    launched = fused_nn.launch_counts["nn1_compact"] + fused_nn.launch_counts["nn1_masked"]
+    launched = native.launch_counts["nn1_compact"] + native.launch_counts["nn1_masked"]
     assert launched == int(it)
     warped = tw.warp_points(graph, tf, src, device=cuda)
     assert torch.isfinite(warped).all()
